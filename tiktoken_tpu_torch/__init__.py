@@ -1,0 +1,13 @@
+"""tiktoken-tpu on PyTorch and CUDA: the corpus encoder on an NVIDIA GPU.
+
+A port of the JAX package ``tiktoken_tpu`` (which stays the reference).
+``Encoding.encode_corpus`` runs the v3 chunk program through four
+hand-written CUDA kernels for Hopper (``tiktoken_tpu_torch/csrc``), built
+at first use; ``device="cpu"`` runs their plain PyTorch versions instead.
+This package imports nothing of the JAX package.
+"""
+
+from tiktoken_tpu_torch.core import Encoding as Encoding
+from tiktoken_tpu_torch.load import load_tiktoken_bpe as load_tiktoken_bpe
+from tiktoken_tpu_torch.patterns import cl100k_pat_str as cl100k_pat_str
+from tiktoken_tpu_torch.patterns import o200k_pat_str as o200k_pat_str

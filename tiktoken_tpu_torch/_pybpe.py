@@ -1,0 +1,187 @@
+"""Host-side exact BPE engine: the port's host fallback and oracle.
+
+A pure-Python implementation of the reference core's semantics
+(reference: src/lib.rs:140-373):
+
+- greedy BPE: repeatedly merge the lowest-rank adjacent pair, ties broken
+  by leftmost position; pair rank is looked up by the *concatenated bytes*
+  (reference: src/lib.rs:140-196);
+- whole-piece vocabulary hits short-circuit BPE (reference:
+  src/lib.rs:367).
+
+``HostBPE`` splits text with the port's own char-level scanner DFA
+(``ops.regex_compiler.scan_codepoints``), so it needs neither the
+``regex`` module nor the reference library.
+"""
+
+from __future__ import annotations
+
+import heapq
+from typing import Iterable
+
+from tiktoken_tpu_torch.ops.regex_compiler import compile_pattern_chars, scan_codepoints
+
+RANK_MAX = 0xFFFFFFFF
+
+
+def byte_pair_merge_boundaries(ranks: dict[bytes, int], piece: bytes) -> list[int]:
+    """Run greedy BPE on ``piece`` and return the sorted token boundaries.
+
+    The result includes 0 and len(piece). Semantics: repeatedly merge the
+    adjacent pair whose concatenated bytes have the lowest rank; ties are
+    broken by the leftmost position (reference: src/lib.rs:140-196).
+    """
+    n = len(piece)
+    if n < 2:
+        return list(range(n + 1))
+    if n >= 512:
+        return _byte_pair_merge_heap(ranks, piece)
+
+    # parts[i] is a byte offset; pair_rank[i] is the rank of merging the
+    # token starting at parts[i] with the token starting at parts[i+1].
+    parts = list(range(n + 1))
+    get = ranks.get
+    pair_rank = [get(piece[i : i + 2], RANK_MAX) for i in range(n - 1)]
+    pair_rank.append(RANK_MAX)  # boundary before final token
+    pair_rank.append(RANK_MAX)  # sentinel at end-of-piece
+
+    while True:
+        min_rank = RANK_MAX
+        min_i = -1
+        for i, r in enumerate(pair_rank):
+            if r < min_rank:
+                min_rank = r
+                min_i = i
+        if min_i < 0 or min_rank == RANK_MAX:
+            break
+        i = min_i
+        # Merge tokens i and i+1: recompute the ranks of the pair to the
+        # left and of the newly-formed pair, then drop boundary i+1.
+        if i > 0:
+            if i + 2 < len(parts):
+                pair_rank[i - 1] = get(piece[parts[i - 1] : parts[i + 2]], RANK_MAX)
+            else:
+                pair_rank[i - 1] = RANK_MAX
+        if i + 3 < len(parts):
+            pair_rank[i] = get(piece[parts[i] : parts[i + 3]], RANK_MAX)
+        else:
+            pair_rank[i] = RANK_MAX
+        del parts[i + 1]
+        del pair_rank[i + 1]
+
+    return parts
+
+
+def _byte_pair_merge_heap(ranks: dict[bytes, int], piece: bytes) -> list[int]:
+    """Heap-based O(m log n) variant for long pieces.
+
+    Same fixed point as :func:`byte_pair_merge_boundaries`; the heap pops
+    (rank, start) so the lowest rank, leftmost-start pair merges first, with
+    lazy invalidation of stale entries (reference: src/lib.rs:17-138).
+    """
+    n = len(piece)
+    get = ranks.get
+    # Doubly linked list over byte offsets.
+    nxt = list(range(1, n + 1)) + [n + 1]
+    prv = list(range(-1, n))
+    cur_rank = [RANK_MAX] * (n + 1)  # rank of the pair starting at offset i
+    heap: list[tuple[int, int]] = []
+    for i in range(n - 1):
+        r = get(piece[i : i + 2], RANK_MAX)
+        if r != RANK_MAX:
+            cur_rank[i] = r
+            heap.append((r, i))
+    heapq.heapify(heap)
+    alive = [True] * (n + 1)
+
+    while heap:
+        r, i = heapq.heappop(heap)
+        if not alive[i] or cur_rank[i] != r:
+            continue  # stale entry
+        j = nxt[i]  # start of the right token
+        k = nxt[j]  # end of the right token
+        # Merge tokens [i, j) and [j, k).
+        alive[j] = False
+        cur_rank[j] = RANK_MAX
+        nxt[i] = k
+        if k <= n:
+            prv[k] = i
+        # New pair starting at i (merged token + following token).
+        if k < n:
+            e = nxt[k]
+            nr = get(piece[i:e], RANK_MAX)
+        else:
+            nr = RANK_MAX
+        cur_rank[i] = nr
+        if nr != RANK_MAX:
+            heapq.heappush(heap, (nr, i))
+        # Updated pair ending at i (previous token + merged token).
+        if i > 0:
+            p = prv[i]
+            pr = get(piece[p:k], RANK_MAX)
+            cur_rank[p] = pr
+            if pr != RANK_MAX:
+                heapq.heappush(heap, (pr, p))
+
+    parts = []
+    i = 0
+    while i <= n:
+        parts.append(i)
+        if i == n:
+            break
+        i = nxt[i]
+    return parts
+
+
+def byte_pair_encode(piece: bytes, ranks: dict[bytes, int]) -> list[int]:
+    """BPE-encode a piece that is not itself a vocabulary token."""
+    if len(piece) == 1:
+        return [ranks[piece]]
+    parts = byte_pair_merge_boundaries(ranks, piece)
+    return [ranks[piece[parts[i] : parts[i + 1]]] for i in range(len(parts) - 1)]
+
+
+class HostBPE:
+    """Exact host engine over one vocabulary and split pattern."""
+
+    def __init__(self, encoder: dict[bytes, int], special_tokens_encoder: dict[str, int],
+                 pattern: str):
+        self.encoder = dict(encoder)
+        self.pattern = pattern
+        self._dfa = None  # compiled at first use
+        self.decoder: dict[int, bytes] = {v: k for k, v in self.encoder.items()}
+        if len(self.encoder) != len(self.decoder):
+            raise ValueError(
+                "Encoder and decoder must be of equal length; "
+                "maybe you had duplicate token indices in your encoder?"
+            )
+        self.special_tokens_decoder: dict[int, bytes] = {
+            v: k.encode("utf-8") for k, v in special_tokens_encoder.items()
+        }
+
+    def split(self, text: str) -> list[str]:
+        """The pattern's pieces of ``text`` (maximal munch, char DFA)."""
+        if self._dfa is None:
+            self._dfa = compile_pattern_chars(self.pattern)
+        starts = scan_codepoints(self._dfa, text)
+        bounds = starts + [len(text)]
+        return [text[a:b] for a, b in zip(bounds, bounds[1:])]
+
+    def encode_ordinary(self, text: str) -> list[int]:
+        """Split with the pattern, then whole-piece hit or BPE per piece
+        (reference: src/lib.rs:360-373)."""
+        ret: list[int] = []
+        enc = self.encoder
+        for piece in self.split(text):
+            b = piece.encode("utf-8")
+            token = enc.get(b)
+            if token is not None:
+                ret.append(token)
+            else:
+                ret.extend(byte_pair_encode(b, enc))
+        return ret
+
+    def decode_bytes(self, tokens: Iterable[int]) -> bytes:
+        dec = self.decoder
+        sdec = self.special_tokens_decoder
+        return b"".join(dec[t] if t in dec else sdec[t] for t in tokens)

@@ -1,0 +1,122 @@
+"""The public ``Encoding`` of the port.
+
+The same constructor and method names as the reference library's
+``Encoding`` for the part this package covers: host ``encode_ordinary``,
+``decode`` / ``decode_bytes``, and the corpus encoder on the GPU
+(``encode_corpus`` / ``encode_corpus_to_numpy``), which runs on ``cuda``
+unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from tiktoken_tpu_torch._pybpe import HostBPE
+from tiktoken_tpu_torch.ops.engine import TorchEngine, resolve_device
+
+
+class Encoding:
+    def __init__(
+        self,
+        name: str,
+        *,
+        pat_str: str,
+        mergeable_ranks: dict[bytes, int],
+        special_tokens: dict[str, int],
+        explicit_n_vocab: int | None = None,
+    ):
+        """Build an encoding from its four defining pieces: a name, the
+        pre-tokenization split pattern, token bytes -> rank (rank order is
+        merge priority), and special token string -> id.
+        ``explicit_n_vocab`` cross-checks the total size."""
+        self.name = name
+        self._pat_str = pat_str
+        self._mergeable_ranks = mergeable_ranks
+        self._special_tokens = special_tokens
+        self.max_token_value = max(
+            max(mergeable_ranks.values()), max(special_tokens.values(), default=0)
+        )
+        if explicit_n_vocab:
+            if len(mergeable_ranks) + len(special_tokens) != explicit_n_vocab:
+                raise ValueError("ranks + special tokens do not add up to explicit_n_vocab")
+            if self.max_token_value != explicit_n_vocab - 1:
+                raise ValueError("token ids are not dense up to explicit_n_vocab")
+        self._core_bpe = HostBPE(mergeable_ranks, special_tokens, pat_str)
+        self._engines: dict[torch.device, TorchEngine] = {}
+
+    def __repr__(self) -> str:
+        return f"<Encoding {self.name!r}>"
+
+    @property
+    def n_vocab(self) -> int:
+        return self.max_token_value + 1
+
+    # -- host ---------------------------------------------------------------
+
+    def encode_ordinary(self, text: str) -> list[int]:
+        """Tokenize ``text`` on the host, special-token strings as plain
+        text."""
+        try:
+            return self._core_bpe.encode_ordinary(text)
+        except UnicodeEncodeError:
+            # lone surrogates become U+FFFD, as in the reference
+            text = text.encode("utf-16", "surrogatepass").decode("utf-16", "replace")
+            return self._core_bpe.encode_ordinary(text)
+
+    def decode_bytes(self, tokens: Sequence[int]) -> bytes:
+        """Concatenate the byte values of ``tokens``."""
+        return self._core_bpe.decode_bytes(tokens)
+
+    def decode(self, tokens: Sequence[int], errors: str = "replace") -> str:
+        """Decode ``tokens`` to a string (``errors`` as in bytes.decode)."""
+        return self._core_bpe.decode_bytes(tokens).decode("utf-8", errors=errors)
+
+    # -- device -------------------------------------------------------------
+
+    def engine(self, device="cuda") -> TorchEngine:
+        """The GPU engine of this encoding on ``device`` (tables built and
+        uploaded at the first call per device)."""
+        dev = resolve_device(device)
+        eng = self._engines.get(dev)
+        if eng is None:
+            eng = TorchEngine.build(self._pat_str, self._mergeable_ranks, dev)
+            self._engines[dev] = eng
+        return eng
+
+    def encode_corpus(
+        self,
+        texts: Sequence[str] | Sequence[bytes],
+        *,
+        device="cuda",
+        row_capacity: int | None = None,
+        chunk_rows: int | None = None,
+    ) -> list[list[int]]:
+        """Encode a batch of documents on ``device`` ("cuda" by default);
+        byte-exact with ``encode_ordinary``."""
+        return self.engine(device).encode_corpus3(
+            texts, host_fallback=self._core_bpe, K=row_capacity, chunk_rows=chunk_rows,
+        )
+
+    def encode_corpus_to_numpy(
+        self,
+        texts: Sequence[str] | Sequence[bytes],
+        *,
+        device="cuda",
+        row_capacity: int | None = None,
+        chunk_rows: int | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """``encode_corpus`` with array output: ``(tokens, offsets)``, where
+        document ``i``'s ids are ``tokens[offsets[i]:offsets[i+1]]``
+        (uint32 / int64)."""
+        per_doc = self.engine(device).encode_corpus3(
+            texts, host_fallback=self._core_bpe, K=row_capacity, chunk_rows=chunk_rows,
+            as_numpy=True,
+        )
+        offsets = np.zeros(len(per_doc) + 1, dtype=np.int64)
+        np.cumsum([len(a) for a in per_doc], out=offsets[1:])
+        tokens = (np.concatenate(per_doc).astype(np.uint32, copy=False)
+                  if per_doc else np.empty(0, np.uint32))
+        return tokens, offsets

@@ -1,0 +1,216 @@
+"""Stable compaction, monotone routing and anchor expansion.
+
+The JAX package builds these as scatter-free radix routes
+(``tiktoken_tpu/ops/compaction.py``) because every scatter is slow on the
+TPU. On the GPU they are prefix sums plus scatters, in the ``compaction``
+kernel (csrc/compaction.cu). This module holds the numpy specs and the
+plain PyTorch versions, with exactly the JAX contracts:
+
+- ``compact``: zero fill past the count; the count is not clamped
+  (callers compare it with ``out_size`` to detect overflow);
+- ``route_right``: ``out[dst[i]] = values[i]`` for ``0 <= dst[i] <
+  out_size``, zero elsewhere;
+- ``expand``: returns ``(payloads, k, valid, total)``.
+
+The chunk program calls the kernel's functions, which carry those
+contracts plus what the program needs around them: ``catalog`` (the
+piece catalog with lengths, too-long row flags and padded words),
+``compact_slots`` (``compact`` with each entry's slot), ``compact_rows``
+(with per-row counts) and ``expand_tokens`` (``expand`` with the token
+fetch).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tiktoken_tpu_torch.ops.pieces import LONG_SLOT, SLOT
+
+
+# ---------------------------------------------------------------------------
+# numpy specs
+# ---------------------------------------------------------------------------
+
+
+def compact_numpy(valid: np.ndarray, payloads, out_size: int, fill=0):
+    """Stable left-compaction along the LAST axis. Returns (list of
+    compacted payloads [..., out_size], count [...])."""
+    valid = np.asarray(valid, bool)
+    lead = valid.shape[:-1]
+    outs = [
+        np.full(lead + (out_size,), fill, dtype=np.asarray(p).dtype)
+        for p in payloads
+    ]
+    counts = np.zeros(lead, dtype=np.int32)
+    for idx in np.ndindex(*lead) if lead else [()]:
+        sel = np.nonzero(valid[idx])[0]
+        n = min(len(sel), out_size)
+        counts[idx] = len(sel)
+        for o, p in zip(outs, payloads):
+            o[idx][:n] = np.asarray(p)[idx][sel[:n]]
+    return outs, counts
+
+
+def expand_numpy(counts: np.ndarray, payloads, out_size: int):
+    """Anchor expansion: anchor i owns `counts[i]` consecutive output
+    slots, in order. Returns (list of payload arrays [out_size] with
+    anchor i's value over its run, within-run index k [out_size],
+    valid [out_size], total)."""
+    n = len(counts)
+    outs = [np.zeros(out_size, dtype=np.asarray(p).dtype) for p in payloads]
+    ks = np.zeros(out_size, dtype=np.int32)
+    valid = np.zeros(out_size, dtype=bool)
+    j = 0
+    for i in range(n):
+        for k in range(int(counts[i])):
+            if j >= out_size:
+                break
+            for o, p in zip(outs, payloads):
+                o[j] = np.asarray(p)[i]
+            ks[j] = k
+            valid[j] = True
+            j += 1
+    return outs, ks, valid, int(np.sum(counts))
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def compact(valid: torch.Tensor, payloads, out_size: int):
+    """Stable compaction along the last axis (any leading dims).
+
+    (valid [..., n] bool, payloads: [..., n] tensors)
+    -> (compacted payloads [..., out_size], zero-filled past the count;
+        count [...] int32 of valid entries, not clamped)."""
+    vi = valid.to(torch.int64)
+    dst = torch.cumsum(vi, dim=-1) - vi  # exclusive prefix = target slot
+    count = (dst[..., -1] + vi[..., -1]).to(torch.int32)
+    tgt = torch.where(valid & (dst < out_size), dst, out_size)
+    outs = []
+    for p in payloads:
+        out = torch.zeros(p.shape[:-1] + (out_size + 1,), dtype=p.dtype, device=p.device)
+        out.scatter_(-1, tgt, p.masked_fill(~valid, 0))
+        outs.append(out[..., :out_size])
+    return outs, count
+
+
+def compact_slots(valid: torch.Tensor, payloads, out_size: int):
+    """``compact`` of a flat mask valid [n] whose payloads are [n] or
+    [n, w] (entries of w values), also returning each entry's slot.
+
+    -> (compacted payloads [out_size] or [out_size, w], count, slot [n]
+    int32: the number of valid entries before i where valid, else -1;
+    not clamped to out_size)."""
+    outs, count = compact(valid, [q for p in payloads for q in
+                                  (p.unbind(1) if p.dim() == 2 else (p,))], out_size)
+    grouped = []
+    for p in payloads:
+        w = p.shape[1] if p.dim() == 2 else 0
+        grouped.append(torch.stack(outs[:w], dim=1) if w else outs[0])
+        outs = outs[max(w, 1):]
+    vi = valid.to(torch.int32)
+    slot = torch.where(valid, torch.cumsum(vi, 0, dtype=torch.int32) - vi, -1)
+    return grouped, count, slot
+
+
+def compact_rows(valid: torch.Tensor, vals: torch.Tensor):
+    """Row-wise ``compact`` of vals [M, W] by valid [M, W] -> (out [M, W],
+    count [M] i32 per row)."""
+    (out,), count = compact(valid, [vals], vals.shape[-1])
+    return out, count
+
+
+def route_right(dst: torch.Tensor, values: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Monotone route: out[dst[i]] = values[i] where 0 <= dst[i] <
+    out_size (dst strictly increasing over routed entries), zero
+    elsewhere."""
+    ok = (dst >= 0) & (dst < out_size)
+    tgt = torch.where(ok, dst, out_size).to(torch.int64)
+    out = torch.zeros(out_size + 1, dtype=values.dtype, device=values.device)
+    out.scatter_(0, tgt, values.masked_fill(~ok, 0))
+    return out[:out_size]
+
+
+def expand(counts: torch.Tensor, payloads, out_size: int):
+    """Anchor expansion over flat arrays.
+
+    (counts [n] i32 >= 0, payloads: [n] tensors)
+    -> (expanded payloads [out_size], k [out_size] within-run index,
+        valid [out_size], total i32 scalar). Anchor i's payload covers its
+    run of counts[i] consecutive output slots; runs beyond out_size are
+    cropped (callers flag overflow via total). Slots at and past total
+    hold zero."""
+    c = counts.to(torch.int64)
+    incl = torch.cumsum(c, dim=0)
+    total = incl[-1] if c.numel() else torch.zeros((), dtype=torch.int64, device=c.device)
+    j = torch.arange(out_size, device=counts.device)
+    valid = j < total
+    anchor = torch.searchsorted(incl, j, right=True).clamp(max=max(c.numel() - 1, 0))
+    k = torch.where(valid, j - (incl[anchor] - c[anchor]), 0).to(torch.int32)
+    outs = [p[anchor].masked_fill(~valid, 0) for p in payloads]
+    return outs, k, valid, total.to(torch.int32)
+
+
+def expand_tokens(counts: torch.Tensor, combo: torch.Tensor, m_tok: torch.Tensor,
+                  l_tok: torch.Tensor, out_size: int):
+    """The chunk's token stream (B8): ``expand`` of per-piece counts and
+    combos, then the fetch of each merged token.
+
+    A combo with bit 31 set carries a single piece's token id in its low
+    bits; otherwise token k of the piece's run is ``unified[combo + k]``,
+    with unified = m_tok [m, 16] then l_tok [l, 64] flattened (index
+    clamped to its end). -> (tokens [out_size] i32, zero at and past the
+    total; total i32 scalar, not clamped)."""
+    (e_combo,), e_k, e_valid, total = expand(counts, [combo], out_size)
+    e_low = e_combo & 0x7FFFFFFF
+    unified = torch.cat([m_tok.reshape(-1), l_tok.reshape(-1)])
+    fetched = unified[(e_low + e_k).clamp(0, unified.numel() - 1).to(torch.int64)]
+    tok = torch.where(e_valid, torch.where(e_combo < 0, e_low, fetched), 0)
+    return tok.to(torch.int32), total
+
+
+def catalog(rows: torch.Tensor, mask3: torch.Tensor, spec_f: torch.Tensor,
+            row_bad: torch.Tensor, p_cap: int):
+    """The piece catalog (B5): stable compaction of the piece starts of
+    ``mask3`` [C, KP] in row-major order, measured and padded.
+
+    Entry j carries its flat index ``row * KL + col`` into ``rows`` [C,
+    KL] u8, its length (to the next start in its row, else to the row's
+    scan end ``spec_f``; the next start reads as 0 past the count, as in
+    the JAX program's zero-filled catalog) and its first 16 bytes as 4
+    little-endian words, zero past min(len, 16) and past KL. A row holding
+    a piece longer than LONG_SLOT is flagged bad.
+    -> (starts [p_cap] i32, words [p_cap, 4] i32, lens [p_cap] i32,
+    row_bad [C] bool, n_pieces i32 scalar); entries past n_pieces are
+    zero."""
+    C, KP = mask3.shape
+    KL = rows.shape[1]
+    dev = rows.device
+    meta = (torch.arange(C, device=dev)[:, None] * KL
+            + torch.arange(KP, device=dev)[None, :]).to(torch.int32)
+    (starts,), n = compact(mask3.reshape(-1), [meta.reshape(-1)], p_cap)
+    live = torch.arange(p_cap, device=dev) < n
+    prow = starts // KL
+    pend = prow * KL + spec_f[prow.clamp(0, C - 1)]  # last piece ends at spec_f
+    nxt = torch.cat([starts[1:], starts.new_zeros(1)])
+    nxt_row = torch.cat([prow[1:], prow.new_full((1,), -1)])
+    ends = torch.where((nxt_row == prow) & live, nxt, pend)
+    lens = torch.where(live, ends - starts, 0).to(torch.int32)
+    # pieces the device cannot merge flag their rows
+    too_long = lens > LONG_SLOT
+    flagged = torch.zeros(C + 1, dtype=torch.uint8, device=dev)
+    flagged.scatter_(0, torch.where(too_long, prow, C).to(torch.int64), too_long.to(torch.uint8))
+    row_bad = row_bad | flagged[:C].bool()
+    # the first min(len, 16) bytes, zero past them and past the row
+    s = starts.to(torch.int64)
+    b_i = torch.arange(SLOT, device=dev)[None, :]
+    col = (s % KL)[:, None] + b_i
+    flat = rows.reshape(-1)
+    idx = (s - s % KL)[:, None] + col
+    keep = (col < KL) & (b_i < lens.clamp(0, SLOT)[:, None])
+    b = torch.where(keep, flat[idx.clamp(max=flat.numel() - 1)], 0)
+    words = b.to(torch.uint8).contiguous().view(torch.int32)  # [p_cap, 4]
+    return starts, words, lens, row_bad, n

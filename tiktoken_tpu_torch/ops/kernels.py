@@ -1,0 +1,427 @@
+"""The port's hand-written CUDA kernels: build, binding, wrappers, counts.
+
+Four kernels carry the v3 chunk program on Hopper (sources in
+``tiktoken_tpu_torch/csrc``, each with a note on what it replaces, what
+bounds it and how its design answers that):
+
+- ``scan_rows``: row gather, char classes and the handshake DFA scan
+  (entry ``scan_rows``), and the handshake validation (``scan_validate``);
+- ``compaction``: the piece catalog, flat and row-wise stable compaction,
+  monotone routing and the expansion into the token stream;
+- ``vocab_hit``: whole-piece vocabulary hits, short and long tables;
+- ``slot_merge``: greedy BPE in 16- and 64-byte slots.
+
+Each source is compiled at first use by its own ``nvcc`` process (all
+started together) into a shared library with a plain C interface, under
+``tiktoken_tpu_torch/build/``, and loaded with ctypes. Every wrapper
+checks device, dtype, shape and contiguity, allocates its outputs with
+``torch.empty``, launches on the current CUDA stream, raises if the entry
+point returns a CUDA error, and adds one to its kernel's count in
+``launches``. A wrapper runs the plain PyTorch version only when its
+tensors lie on the CPU; a CUDA tensor always goes to the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from types import SimpleNamespace
+
+import torch
+
+from tiktoken_tpu_torch.ops import compaction, pieces, slot_merge as slot_merge_mod
+from tiktoken_tpu_torch.ops import sweep_scan
+from tiktoken_tpu_torch.ops.charclass import na_cap
+from tiktoken_tpu_torch.ops.sweep_scan import ScanTables
+
+KERNELS = ("scan_rows", "compaction", "vocab_hit", "slot_merge")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel launches since the last reset_launches(), by kernel
+launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        launches[k] = 0
+
+
+_P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+_SIGNATURES = {
+    "scan_rows": {
+        "tt_scan_rows": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I,
+                         _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        "tt_scan_validate": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    },
+    "compaction": {
+        "tt_compact": [_P, _LL, _I, _P, _P, _P, _LL, _P, _P, _P, _P],
+        "tt_catalog": [_P, _I, _I, _P, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P],
+        "tt_compact_rows": [_P, _P, _I, _I, _P, _P, _P],
+        "tt_route": [_P, _P, _I, _I, _P, _P],
+        "tt_expand_tokens": [_P, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _P, _P, _P],
+        "tt_tiles": [_LL],
+    },
+    "vocab_hit": {
+        "tt_vocab_hit": [_P, _I, _P, _P, _I, _U, _P, _P],
+        "tt_long_vocab_hit": [_P, _I, _P, _P, _I, _U, _P, _P],
+    },
+    "slot_merge": {
+        "tt_slot_merge": [_I, _P, _I, _U, _P, _P, _P, _I, _P, _P, _P],
+    },
+}
+
+
+class _Libraries:
+    """The built and loaded kernel libraries (built once per process)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.libs: dict[str, ctypes.CDLL] | None = None
+        self.build_seconds: float | None = None
+        self.ptxas: dict[str, str] = {}
+
+    def load(self) -> dict[str, ctypes.CDLL]:
+        with self._lock:
+            if self.libs is None:
+                t0 = time.perf_counter()
+                self.libs = self._build()
+                self.build_seconds = time.perf_counter() - t0
+            return self.libs
+
+    def _build(self) -> dict[str, ctypes.CDLL]:
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not os.path.exists(nvcc):
+            raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(CSRC, "common.cuh"), "rb") as f:
+            common = f.read()
+        targets, procs = {}, {}
+        for name in KERNELS:
+            src = os.path.join(CSRC, name + ".cu")
+            with open(src, "rb") as f:
+                digest = hashlib.sha256(f.read() + common + " ".join(NVCC_FLAGS).encode())
+            so = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+            targets[name] = so
+            if not os.path.exists(so):
+                tmp = f"{so}.{os.getpid()}.tmp"
+                procs[name] = (subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                ), tmp)
+        for name, (proc, tmp) in procs.items():
+            out, _ = proc.communicate()
+            self.ptxas[name] = out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{out}")
+            os.replace(tmp, targets[name])
+        libs = {}
+        for name, so in targets.items():
+            lib = ctypes.CDLL(so)
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            libs[name] = lib
+        return libs
+
+
+_LIBS = _Libraries()
+
+
+def build() -> _Libraries:
+    """Build and load every kernel now (normally done at first launch);
+    returns the libraries, with the build time and nvcc's -Xptxas -v
+    report per kernel."""
+    _LIBS.load()
+    return _LIBS
+
+
+def _call(kernel: str, fn: str, *args) -> None:
+    err = getattr(_LIBS.load()[kernel], fn)(*args)
+    if err != 0:
+        raise RuntimeError(f"{kernel}.{fn} failed with CUDA error {err}")
+    launches[kernel] += 1
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> int:
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+    return t.data_ptr()
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def _dev(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got {t.device}")
+    return t.device
+
+
+# ---------------------------------------------------------------------------
+# scan_rows
+# ---------------------------------------------------------------------------
+
+
+def scan_rows(tables: ScanTables, flat, row_off, n_payload, n_total, is_doc_end,
+              *, KP: int, KL: int, na_frac: int):
+    """B1+B2+B3 -> (rows [C, KL] u8, mask [C, KP] bool, spec_f [C] i32,
+    row_bad [C] bool, na_overflow bool scalar)."""
+    if _on_cpu(flat):
+        return sweep_scan.scan_rows(tables, flat, row_off, n_payload, n_total,
+                                    is_doc_end, KP=KP, KL=KL, na_frac=na_frac)
+    dev = _dev(flat)
+    C = row_off.shape[0]
+    i32, u8, b = torch.int32, torch.uint8, torch.bool
+    S_, NW = tables.consts.shape
+    args = [
+        _check("flat", flat, u8, None, dev), flat.shape[0],
+        _check("row_off", row_off, i32, (C,), dev),
+        _check("n_payload", n_payload, i32, (C,), dev),
+        _check("n_total", n_total, i32, (C,), dev),
+        _check("is_doc_end", is_doc_end, b, (C,), dev), C, KL, KP,
+        _check("page_entry", tables.page_entry, i32, None, dev),
+        _check("mixed_rows", tables.mixed_rows, u8, None, dev),
+        tables.mixed_rows.shape[0],
+        _check("consts", tables.consts, i32, None, dev), S_, NW,
+        tables.skip_class, tables.cont_class, tables.eof_class, na_cap(KL, na_frac),
+    ]
+    rows = torch.empty((C, KL), dtype=u8, device=dev)
+    mask = torch.empty((C, KP), dtype=b, device=dev)
+    spec_f = torch.empty(C, dtype=i32, device=dev)
+    row_bad = torch.empty(C, dtype=b, device=dev)
+    na_over = torch.empty(C, dtype=b, device=dev)
+    _call("scan_rows", "tt_scan_rows", *args, rows.data_ptr(), mask.data_ptr(),
+          spec_f.data_ptr(), row_bad.data_ptr(), na_over.data_ptr(), _stream(dev))
+    return rows, mask, spec_f, row_bad, na_over.any()
+
+
+def scan_validate(mask, spec_f, row_bad, n_payload, prev_same_doc, emit):
+    """B4 -> (mask3 [C, KP] bool, row_bad [C] bool)."""
+    if _on_cpu(mask):
+        return sweep_scan.scan_validate(mask, spec_f, row_bad, n_payload,
+                                        prev_same_doc, emit)
+    dev = _dev(mask)
+    C, KP = mask.shape
+    args = [
+        _check("mask", mask, torch.bool, (C, KP), dev),
+        _check("spec_f", spec_f, torch.int32, (C,), dev),
+        _check("row_bad", row_bad, torch.bool, (C,), dev),
+        _check("n_payload", n_payload, torch.int32, (C,), dev),
+        _check("prev_same_doc", prev_same_doc, torch.bool, (C,), dev),
+        _check("emit", emit, torch.bool, (C,), dev), C, KP,
+    ]
+    mask3 = torch.empty((C, KP), dtype=torch.bool, device=dev)
+    bad = torch.empty(C, dtype=torch.bool, device=dev)
+    _call("scan_rows", "tt_scan_validate", *args, mask3.data_ptr(), bad.data_ptr(),
+          _stream(dev))
+    return mask3, bad
+
+
+# ---------------------------------------------------------------------------
+# compaction
+# ---------------------------------------------------------------------------
+
+
+def _tile_scratch(n: int, dev) -> torch.Tensor:
+    tiles = _LIBS.load()["compaction"].tt_tiles(n)
+    return torch.empty(tiles, dtype=torch.int64, device=dev)
+
+
+def catalog(rows, mask3, spec_f, row_bad, p_cap: int):
+    """B5 -> (starts [p_cap] i32, words [p_cap, 4] i32, lens [p_cap] i32,
+    row_bad [C] bool, n_pieces i32)."""
+    if _on_cpu(rows):
+        return compaction.catalog(rows, mask3, spec_f, row_bad, p_cap)
+    dev = _dev(rows)
+    C, KL = rows.shape
+    KP = mask3.shape[1]
+    args = [_check("mask3", mask3, torch.bool, (C, KP), dev), C, KP,
+            _check("rows", rows, torch.uint8, (C, KL), dev), KL,
+            _check("spec_f", spec_f, torch.int32, (C,), dev),
+            _check("row_bad", row_bad, torch.bool, (C,), dev), p_cap]
+    starts = torch.empty(p_cap, dtype=torch.int32, device=dev)
+    words = torch.empty((p_cap, 4), dtype=torch.int32, device=dev)
+    lens = torch.empty(p_cap, dtype=torch.int32, device=dev)
+    bad = torch.empty(C, dtype=torch.bool, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = _tile_scratch(C * KP, dev)
+    _call("compaction", "tt_catalog", *args, starts.data_ptr(), words.data_ptr(),
+          lens.data_ptr(), bad.data_ptr(), count.data_ptr(), scratch.data_ptr(), _stream(dev))
+    return starts, words, lens, bad, count
+
+
+def compact(valid, payloads, out_size: int):
+    """Flat stable compaction of up to 6 int32 payloads, each [n] or
+    [n, w] -> (outs, count, slot [n] i32); see ``compaction.compact_slots``."""
+    if _on_cpu(valid):
+        return compaction.compact_slots(valid, payloads, out_size)
+    dev = _dev(valid)
+    (n,) = valid.shape
+    if not 1 <= len(payloads) <= 6:
+        raise ValueError("compact takes 1 to 6 payloads")
+    for i, p in enumerate(payloads):
+        _check(f"payload{i}", p, torch.int32, None, dev)
+        if p.dim() not in (1, 2) or p.shape[0] != n:
+            raise ValueError(f"payload{i}: expected shape ({n},) or ({n}, w), got {tuple(p.shape)}")
+    outs = [torch.empty((out_size,) + tuple(p.shape[1:]), dtype=torch.int32, device=dev)
+            for p in payloads]
+    k = len(payloads)
+    ins = (ctypes.c_void_p * k)(*[p.data_ptr() for p in payloads])
+    out_ptrs = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
+    widths = (ctypes.c_int * k)(*[p.shape[1] if p.dim() == 2 else 1 for p in payloads])
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = _tile_scratch(n, dev)
+    _call("compaction", "tt_compact", _check("valid", valid, torch.bool, (n,), dev), n, k,
+          ctypes.cast(ins, _P), ctypes.cast(out_ptrs, _P), ctypes.cast(widths, _P), out_size,
+          count.data_ptr(), slot.data_ptr(), scratch.data_ptr(), _stream(dev))
+    return outs, count, slot
+
+
+def compact_rows(valid, vals):
+    """Row-wise stable compaction of vals [M, W] i32 by valid [M, W],
+    zero-filled -> (out [M, W] i32, count [M] i32)."""
+    if _on_cpu(valid):
+        return compaction.compact_rows(valid, vals)
+    dev = _dev(valid)
+    M, W = vals.shape
+    args = [_check("valid", valid, torch.bool, (M, W), dev),
+            _check("vals", vals, torch.int32, (M, W), dev), M, W]
+    out = torch.empty((M, W), dtype=torch.int32, device=dev)
+    count = torch.empty(M, dtype=torch.int32, device=dev)
+    _call("compaction", "tt_compact_rows", *args, out.data_ptr(), count.data_ptr(), _stream(dev))
+    return out, count
+
+
+def route_right(dst, values, out_size: int):
+    """out[dst[i]] = values[i] (0 <= dst[i] < out_size), zero elsewhere."""
+    if _on_cpu(dst):
+        return compaction.route_right(dst, values, out_size)
+    dev = _dev(dst)
+    (n,) = dst.shape
+    args = [_check("dst", dst, torch.int32, (n,), dev),
+            _check("values", values, torch.int32, (n,), dev), n, out_size]
+    out = torch.empty(out_size, dtype=torch.int32, device=dev)
+    _call("compaction", "tt_route", *args, out.data_ptr(), _stream(dev))
+    return out
+
+
+def expand_tokens(counts, combo, m_tok, l_tok, out_size: int):
+    """B8's token stream -> (tokens [out_size] i32, total i32); see
+    ``compaction.expand_tokens``."""
+    if _on_cpu(counts):
+        return compaction.expand_tokens(counts, combo, m_tok, l_tok, out_size)
+    dev = _dev(counts)
+    (n,) = counts.shape
+    args = [_check("counts", counts, torch.int32, (n,), dev),
+            _check("combo", combo, torch.int32, (n,), dev), n,
+            _check("m_tok", m_tok, torch.int32, None, dev), m_tok.numel(),
+            _check("l_tok", l_tok, torch.int32, None, dev), l_tok.numel(), out_size]
+    tok = torch.empty(out_size, dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = _tile_scratch(n, dev)
+    _call("compaction", "tt_expand_tokens", *args, tok.data_ptr(), total.data_ptr(),
+          scratch.data_ptr(), _stream(dev))
+    return tok, total
+
+
+# ---------------------------------------------------------------------------
+# vocab_hit
+# ---------------------------------------------------------------------------
+
+
+def vocab_hit(buckets, words, lens, seed: int):
+    """(buckets [nb, 64] i32, words [P, 4] i32, lens [P] i32) -> ids [P] i32."""
+    if _on_cpu(words):
+        return pieces.vocab_hit(buckets, words, lens, seed)
+    dev = _dev(words)
+    P = words.shape[0]
+    nb = buckets.shape[0]
+    args = [_check("buckets", buckets, torch.int32, (nb, pieces.VOCAB_BUCKET_WIDTH), dev), nb,
+            _check("words", words, torch.int32, (P, 4), dev),
+            _check("lens", lens, torch.int32, (P,), dev), P, seed]
+    out = torch.empty(P, dtype=torch.int32, device=dev)
+    _call("vocab_hit", "tt_vocab_hit", *args, out.data_ptr(), _stream(dev))
+    return out
+
+
+def long_vocab_hit(buckets, slot_bytes, lens, seed: int):
+    """(buckets [nb, 128] i32, slot_bytes [M, 64] u8, lens [M] i32) -> ids [M] i32."""
+    if _on_cpu(slot_bytes):
+        return pieces.long_vocab_hit(buckets, slot_bytes, lens, seed)
+    dev = _dev(slot_bytes)
+    M = slot_bytes.shape[0]
+    nb = buckets.shape[0]
+    args = [_check("buckets", buckets, torch.int32, (nb, pieces.LONG_BUCKET_WIDTH), dev), nb,
+            _check("slot_bytes", slot_bytes, torch.uint8, (M, pieces.LONG_SLOT), dev),
+            _check("lens", lens, torch.int32, (M,), dev), M, seed]
+    if slot_bytes.data_ptr() % 4:
+        raise ValueError("slot_bytes must be 4-byte aligned")
+    out = torch.empty(M, dtype=torch.int32, device=dev)
+    _call("vocab_hit", "tt_long_vocab_hit", *args, out.data_ptr(), _stream(dev))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# slot_merge
+# ---------------------------------------------------------------------------
+
+
+def slot_merge(buckets, byte_to_rank, slot_bytes, lens, seed: int):
+    """(pair buckets [nb, 32] i32, byte_to_rank [256] i32, slot_bytes
+    [M, W] u8 with W in (16, 64), lens [M] i32) -> (tokens [M, W] i32,
+    alive [M, W] bool)."""
+    if _on_cpu(slot_bytes):
+        return slot_merge_mod.slot_merge(buckets, byte_to_rank, slot_bytes, lens, seed)
+    dev = _dev(slot_bytes)
+    M, W = slot_bytes.shape
+    if W not in (16, 64):
+        raise ValueError(f"slot width must be 16 or 64, got {W}")
+    nb = buckets.shape[0]
+    if buckets.data_ptr() % 16:
+        raise ValueError("pair buckets must be 16-byte aligned")
+    args = [W, _check("buckets", buckets, torch.int32, (nb, 32), dev), nb, seed,
+            _check("byte_to_rank", byte_to_rank, torch.int32, (256,), dev),
+            _check("slot_bytes", slot_bytes, torch.uint8, (M, W), dev),
+            _check("lens", lens, torch.int32, (M,), dev), M]
+    tok = torch.empty((M, W), dtype=torch.int32, device=dev)
+    alive = torch.empty((M, W), dtype=torch.bool, device=dev)
+    _call("slot_merge", "tt_slot_merge", *args, tok.data_ptr(), alive.data_ptr(),
+          _stream(dev))
+    return tok, alive
+
+
+# The chunk program's two sets of operations: the kernels (plain versions
+# on CPU tensors), and the plain versions everywhere — the yardstick the
+# chip check holds each kernel against.
+KERNEL_OPS = SimpleNamespace(
+    scan_rows=scan_rows, scan_validate=scan_validate, catalog=catalog, compact=compact,
+    compact_rows=compact_rows, route_right=route_right, expand_tokens=expand_tokens,
+    vocab_hit=vocab_hit, long_vocab_hit=long_vocab_hit, slot_merge=slot_merge,
+)
+PLAIN_OPS = SimpleNamespace(
+    scan_rows=sweep_scan.scan_rows, scan_validate=sweep_scan.scan_validate,
+    catalog=compaction.catalog, compact=compaction.compact_slots,
+    compact_rows=compaction.compact_rows, route_right=compaction.route_right,
+    expand_tokens=compaction.expand_tokens, vocab_hit=pieces.vocab_hit,
+    long_vocab_hit=pieces.long_vocab_hit, slot_merge=slot_merge_mod.slot_merge,
+)
