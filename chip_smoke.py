@@ -5,19 +5,30 @@
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 
-1. the card's name and power limit; the build of the four CUDA kernels;
+1. the card's name and power limit; the build of the six CUDA kernels;
 2. the bench vocabulary (assets/bench_vocab2_100000.tiktoken, 100,000
    ranks) with the o200k split pattern, its tables built and uploaded;
 3. a seeded 64 MB synthetic corpus (the bench corpus recipe), cut into
    1 MB documents, plus edge documents;
-4. per kernel, on one real chunk of that corpus at C=32768 rows, K=176:
-   every entry point against its plain PyTorch version on the same
-   inputs (integers, so exact equality), timed with CUDA events; then
-   the whole chunk program with the kernels and with the plain versions;
-5. the main path: ``Encoding.encode_corpus_to_numpy`` over the corpus on
-   ``cuda``, with every kernel's launch count read around it;
+4. per kernel, on one real v3 chunk of that corpus at C=32768 rows,
+   K=176: every entry point against its plain PyTorch version on the
+   same inputs (integers, so exact equality), timed with CUDA events;
+   then the whole chunk program with the kernels and with the plain
+   versions;
+4b. the same on one real v2 chunk at C=32768 rows, K=256 (the byte-level
+   scan table compiled and uploaded first): every entry point of
+   ``run_chunk2`` and of the v1 ``run_rows1`` on those rows against its
+   plain version, then both programs with the kernels against plain;
+5. the v3 main path: ``Encoding.encode_corpus_to_numpy`` over the corpus
+   on ``cuda``, with every kernel's launch count read around it;
+5b. the v2 main path: the same call with ``pipeline=2``, then a small
+   ``pipeline=2`` call of random words whose chunk overflows v2's
+   short-miss cap and re-runs through v1, each with the launch counts
+   read around it;
 6. every document decodes back to its bytes; the edge documents and four
-   1 MB documents equal the host ``encode_ordinary``.
+   1 MB documents equal the host ``encode_ordinary``;
+6b. the v2 ids equal the v3 ids over the whole corpus, and the overflow
+   call's ids equal ``encode_ordinary``.
 
 Before the last line it prints the card line and one JSON ``kernels``
 line; the last line is ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -43,17 +54,24 @@ INT32_OPS_PER_S = 67e12  # float32 non-tensor rate, as the 32-bit ALU proxy
 KERNEL_OF = {
     "scan_rows": "scan_rows", "scan_validate": "scan_rows",
     "catalog": "compaction", "compact": "compaction", "compact_rows": "compaction",
-    "route_right": "compaction", "expand_tokens": "compaction",
+    "route_right": "compaction", "expand_tokens": "compaction", "catalog2": "compaction",
+    "extract_slots": "compaction", "expand_tokens_rows": "compaction",
     "vocab_hit": "vocab_hit", "long_vocab_hit": "vocab_hit",
     "slot_merge": "slot_merge",
+    "seq_scan": "byte_scan", "window_scan": "byte_scan", "orbit": "byte_scan",
+    "grid_merge": "grid_merge",
 }
 REPLACES = {
     "scan_rows": "tiktoken_tpu/ops/sweep_scan.py:233; tiktoken_tpu/ops/charclass.py:215; "
                  "tiktoken_tpu/ops/pipeline3.py:306; tiktoken_tpu/ops/pipeline3.py:410",
     "compaction": "tiktoken_tpu/ops/compaction.py:78; tiktoken_tpu/ops/compaction.py:164; "
-                  "tiktoken_tpu/ops/pipeline3.py:327",
+                  "tiktoken_tpu/ops/pipeline3.py:327; tiktoken_tpu/ops/pieces.py:288; "
+                  "tiktoken_tpu/ops/pieces.py:317; tiktoken_tpu/ops/pipeline2.py:104",
     "vocab_hit": "tiktoken_tpu/ops/pieces.py:354; tiktoken_tpu/ops/pieces.py:205",
     "slot_merge": "tiktoken_tpu/ops/slot_merge.py:62",
+    "byte_scan": "tiktoken_tpu/ops/window_scan.py:287; tiktoken_tpu/ops/window_scan.py:118; "
+                 "tiktoken_tpu/ops/window_scan.py:197",
+    "grid_merge": "tiktoken_tpu/ops/merge.py:116; tiktoken_tpu/ops/engine.py:281",
 }
 JAX_FUNCTIONS = {
     "scan_rows": ["pipeline3.row_gather", "charclass.make_byte_classes_fn",
@@ -61,9 +79,20 @@ JAX_FUNCTIONS = {
                   "pipeline3 handshake validation"],
     "compaction": ["compaction.compact", "compaction.expand", "pipeline3.route_right",
                    "pipeline3 catalog lengths, too-long flags and word padding",
-                   "pipeline3 slot prefix sums and token fetch"],
+                   "pipeline3 slot prefix sums and token fetch",
+                   "pieces.make_catalog_fn", "pieces.make_extract_fn",
+                   "pipeline2 extract_long", "pipeline2 assembly and row counts"],
     "vocab_hit": ["pieces.make_vocab_hit_fn", "pieces.make_long_vocab_hit_fn"],
     "slot_merge": ["slot_merge.make_slot_merge_fn(W=16)", "slot_merge.make_slot_merge_fn(W=64)"],
+    "byte_scan": ["window_scan.make_seq_scan_fn", "window_scan.make_window_scan_fn",
+                  "window_scan.make_orbit_fn"],
+    "grid_merge": ["merge.make_merge_fn", "engine.build_pipeline_fn row assembly"],
+}
+# which kernels each path must launch
+PATH_KERNELS = {
+    "v3": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
+    "v2": ("byte_scan", "compaction", "vocab_hit", "slot_merge"),
+    "v2_overflow": ("byte_scan", "grid_merge"),
 }
 
 CJK = "東京タワーは高い。パリは花の都、そして京都は古都です。春はあけぼの、やうやう白くなりゆく山際。"
@@ -128,6 +157,18 @@ def make_bench_corpus(n_chars: int, seed: int) -> str:
         out.append(sep)
         size += len(tok) + len(sep)
     return "".join(out)
+
+
+def random_words(n_chars: int, seed: int) -> str:
+    """Random lower-case 4-8-letter words: nearly every piece misses the
+    vocabulary (0.05% of such words are tokens of the bench vocabulary)."""
+    rng = random.Random(seed)
+    out, size = [], 0
+    while size < n_chars:
+        w = "".join(rng.choice("abcdefghijklmnopqrstuvwxyz") for _ in range(rng.randrange(4, 9)))
+        out.append(w)
+        size += len(w) + 1
+    return " ".join(out)
 
 
 def bench_docs(corpus_mb: float) -> list[str]:
@@ -244,7 +285,8 @@ def work_of(name, args, out) -> tuple[int, int]:
     entries, in 32-byte sectors; a table only the rows this data probes),
     each output written once. The two scan_rows entry points count as one
     function: the mask, spec_f and row_bad that pass from the first to
-    the second are written once and read by neither."""
+    the second are written once and read by neither. So do window_scan
+    and orbit: hop and unresolved are neither written nor read."""
     outs = flatten(out)
     if name == "scan_rows":
         t, flat, row_off, n_payload, n_total, is_doc_end = args
@@ -299,6 +341,54 @@ def work_of(name, args, out) -> tuple[int, int]:
         moved = (touched(lens > 0, slot_bytes.shape[1]) + nbytes([lens, b2r]) + nbytes(outs)
                  + min(probes * 128, buckets.nbytes))
         ops = probes * 8
+    elif name == "seq_scan":
+        packed, rows, n_payload, n_total = args
+        mask, _ = outs
+        steps = int(n_payload.clamp(min=0).sum()) + int(mask.sum())  # a byte, or a restart
+        read = int(n_total.clamp(0, rows.shape[1]).sum())  # each row's bytes to its scan end
+        moved = (read + nbytes([n_payload, n_total]) + nbytes(outs)
+                 + min(steps * 32, packed.nbytes))
+        ops = steps
+    elif name == "window_scan":
+        # counted with orbit as one function: hop and unresolved pass from
+        # one entry to the other and are neither written nor read here
+        packed, rows, n_total = args
+        hop, _ = outs
+        steps = int(hop.clamp(min=1).sum())  # each position scans at least to its match end
+        read = int(n_total.clamp(0, rows.shape[1]).sum())
+        moved = read + n_total.nbytes + min(steps * 32, packed.nbytes)
+        ops = steps
+    elif name == "orbit":
+        mask, _ = outs
+        moved = args[2].nbytes + nbytes(outs)
+        ops = int(mask.sum())
+    elif name == "grid_merge":
+        buckets, b2r, rows, piece_start, n_payload = args[:5]
+        _, counts, _ = out
+        C, K = piece_start.shape
+        valid = torch.arange(K, device=rows.device)[None, :] < n_payload[:, None]
+        heads = valid & piece_start
+        heads[:, 0] |= valid[:, 0]
+        n_valid, n_heads, n_alive = int(valid.sum()), int(heads.sum()), int(counts.sum())
+        probes = (n_valid - n_heads) + 2 * (n_valid - n_alive)
+        # the row bytes and piece starts below each row's payload end
+        moved = (2 * touched(valid, 1) + nbytes([n_payload, b2r]) + nbytes(out)
+                 + min(probes * 128, buckets.nbytes))
+        ops = probes * 8
+    elif name == "catalog2":
+        piece_start, n_payload, rows, row_bad, _ = args
+        n = min(int(outs[-1]), outs[0].numel())
+        moved = nbytes([piece_start, n_payload, row_bad]) + 16 * n + nbytes(outs)
+        ops = piece_start.numel() + 16 * n
+    elif name == "extract_slots":
+        rows, starts, lens = args[:3]
+        moved = int(lens.clamp(min=0).sum()) + nbytes([starts, lens]) + nbytes(outs)
+        ops = outs[0].numel() // 4
+    elif name == "expand_tokens_rows":
+        counts, combo, _m, _l, _size, starts = args[:6]
+        fetched = int(counts[combo >= 0].sum())
+        moved = nbytes([counts, combo, starts]) + 4 * fetched + nbytes(outs)
+        ops = 2 * counts.numel() + int(out[1])
     else:
         raise KeyError(name)
     return moved, ops
@@ -331,11 +421,37 @@ def library_call(name, args, out):
         counts, combo = args[:2]
         total = int(out[1])
         return (lambda: torch.repeat_interleave(combo, counts, output_size=total)), False
+    if name == "catalog2":
+        m = args[0].reshape(-1)
+        flat_idx = torch.arange(m.numel(), dtype=torch.int32, device=m.device)
+        return (lambda: torch.index_select(flat_idx, 0, torch.nonzero(m).squeeze(1))), True
+    if name == "extract_slots":
+        rows, starts, K = args[0], args[1], args[3]
+        width = out.shape[1]
+        s64 = starts.to(torch.int64)
+        idx = ((s64 // K).clamp(max=rows.shape[0] - 1) * rows.shape[1] + s64 % K)[:, None] \
+            + torch.arange(width, device=rows.device)[None, :]
+        idx = idx.clamp(max=rows.numel() - 1)
+        flat = rows.reshape(-1)
+        return (lambda: torch.take(flat, idx)), False
+    if name == "expand_tokens_rows":
+        counts, combo, _m, _l, _size, starts, K, n_rows = args
+        total = int(out[1])
+        row = (starts // K).clamp(max=n_rows - 1).to(torch.int64)
+
+        def assembly():
+            torch.repeat_interleave(combo, counts, output_size=total)
+            return torch.zeros(n_rows, dtype=torch.int32, device=counts.device).scatter_add_(
+                0, row, counts)
+
+        return assembly, False
     return None, False
 
 
-def kernel_phase(enc, docs, device="cuda", C: int = 32768) -> dict:
-    """Each kernel entry point on one real chunk vs its plain version."""
+def kernel_phase(enc, docs, device="cuda", C: int = 32768):
+    """Phase 4: one real v3 chunk through run_chunk, with the kernels
+    against the plain versions, every call recorded; edge chunks in both
+    cap variants."""
     from tiktoken_tpu_torch.ops import kernels, pipeline3
 
     eng = enc.engine(device)
@@ -386,10 +502,23 @@ def kernel_phase(enc, docs, device="cuda", C: int = 32768) -> dict:
     log(f"chunk program C={C} K={K}: kernels == plain (n_pieces={hk[-5]} "
         f"n_miss={hk[-4]} n_long={hk[-3]} n_tokens={nt}); device time with the "
         f"kernels {chunk_ms:.3f} ms")
+    return calls, chunk_ms
 
-    per = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_bound_ms=0.0, ops_bound_ms=0.0,
-                   library_ms=None, max_abs_err=0, match=True, entries=[])
-           for k in kernels.KERNELS}
+
+def new_per() -> dict:
+    from tiktoken_tpu_torch.ops import kernels
+
+    return {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_bound_ms=0.0, ops_bound_ms=0.0,
+                    library_ms=None, max_abs_err=0, match=True, entries=[])
+            for k in kernels.KERNELS}
+
+
+def measure(calls, per: dict, program: str) -> None:
+    """Each recorded kernel call against its plain version on the same
+    inputs, timed beside its bound and library call; summed per kernel
+    into ``per``. Fails on any difference."""
+    from tiktoken_tpu_torch.ops import kernels
+
     for name, args, kwargs, out in calls:
         kname = KERNEL_OF[name]
         k_fn = getattr(kernels.KERNEL_OPS, name)
@@ -418,17 +547,64 @@ def kernel_phase(enc, docs, device="cuda", C: int = 32768) -> dict:
             e["library_ms"] = (e["library_ms"] or 0.0) + lib_ms
         e["max_abs_err"] = max(e["max_abs_err"], err)
         e["match"] &= err == 0
-        e["entries"].append(dict(entry=name, ms=ms, plain_ms=plain_ms,
+        e["entries"].append(dict(program=program, entry=name, ms=ms, plain_ms=plain_ms,
                                  bound_ms=max(b_ms, o_ms), library_ms=lib_ms, err=err))
-        log(f"  {name:15s} err={err} ms={ms:.4f} plain_ms={plain_ms:.2f} "
-            f"bound_ms={max(b_ms, o_ms):.4f} library_ms={lib_ms}")
+        log(f"  {program} {name:18s} err={err} ms={ms:.4f} plain_ms={plain_ms:.2f} "
+            f"bound_ms={max(b_ms, o_ms):.5f} library_ms={lib_ms}")
     for k, e in per.items():
         if not e["match"]:
             raise RuntimeError(f"kernel {k} disagrees with its plain version "
                                f"(max abs err {e['max_abs_err']})")
-        if not e["entries"]:
-            raise RuntimeError(f"kernel {k} did not run in the chunk program")
-    return per, chunk_ms
+
+
+def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
+    """Phase 4b: one real v2 chunk (C rows of K=256) through run_chunk2 and
+    the v1 run_rows1, with the kernels against the plain versions, every
+    call recorded."""
+    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, pack_documents
+    from tiktoken_tpu_torch.ops.pipeline2 import run_chunk2, run_rows1
+
+    eng = enc.engine(device)
+    t0 = time.perf_counter()
+    tables = eng.byte_tables()
+    torch.cuda.synchronize()
+    log(f"byte-level scan table {tuple(tables.byte_scan.shape)} compiled and uploaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sel, rows_n = [], 0
+    for d in docs:
+        if rows_n >= C:
+            break
+        sel.append(d.encode("utf-8"))
+        rows_n += pack_documents(sel[-1:], DEFAULT_ROW).rows.shape[0]
+    batch = pack_documents(sel, DEFAULT_ROW)
+    if batch.rows.shape[0] < C:
+        raise RuntimeError(f"the v2 kernel-phase chunk has {batch.rows.shape[0]} rows, want {C}")
+    rows, pay, tot = eng.upload([batch.rows[:C], batch.n_payload[:C], batch.n_total[:C]])
+
+    calls: list = []
+    tok_k, hdr_k = run_chunk2(tables, rows, pay, tot, ops=recording_ops(kernels.KERNEL_OPS, calls))
+    tok_p, hdr_p = run_chunk2(tables, rows, pay, tot, ops=kernels.PLAIN_OPS)
+    hk = hdr_k.cpu().numpy()
+    nt = int(hk[-2])
+    if not (torch.equal(hdr_k, hdr_p) and torch.equal(tok_k[:nt], tok_p[:nt])):
+        raise RuntimeError("v2 chunk program: kernels and plain versions disagree")
+    if hk[-1]:
+        raise RuntimeError("the v2 kernel-phase chunk overflowed its caps")
+    calls1: list = []
+    out_k = run_rows1(tables, rows, pay, tot, ops=recording_ops(kernels.KERNEL_OPS, calls1))
+    out_p = run_rows1(tables, rows, pay, tot, ops=kernels.PLAIN_OPS)
+    for a, b, what in zip(out_k, out_p, ("packed", "counts", "rounds", "row_bad")):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"v1 program: kernels and plain versions disagree on {what}")
+    chunk2_ms = gpu_ms(lambda: run_chunk2(tables, rows, pay, tot), reps=5)
+    rows1_ms = gpu_ms(lambda: run_rows1(tables, rows, pay, tot), reps=3)
+    log(f"v2 chunk program C={C} K={DEFAULT_ROW}: kernels == plain (n_tokens={nt}, "
+        f"row_bad={int(hk[C:2 * C].sum())}); device time with the kernels {chunk2_ms:.3f} ms")
+    log(f"v1 program on the same rows: kernels == plain (rounds={int(out_k[2])}, "
+        f"tokens={int(out_k[1].sum())}, row_bad={int(out_k[3].sum())}); device time with the "
+        f"kernels {rows1_ms:.3f} ms")
+    return calls, calls1, chunk2_ms, rows1_ms
 
 
 # ---------------------------------------------------------------------------
@@ -475,33 +651,62 @@ def main() -> int:
     log(f"corpus: {len(docs)} documents of 1 MB + {len(edge)} edge documents, "
         f"{total_bytes} bytes, built in {time.perf_counter() - t0:.1f} s")
 
-    # ---- 4: every kernel against its plain version -------------------------
-    per, chunk_ms = kernel_phase(enc, docs)
-
-    # ---- 5: the main path --------------------------------------------------
-    stats0 = dict(eng.stats)
-    torch.cuda.synchronize()
-    kernels.reset_launches()
+    # ---- 4: every kernel against its plain version, v3 chunk --------------
     t0 = time.perf_counter()
-    tokens, offsets = enc.encode_corpus_to_numpy(all_docs, device="cuda")
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    run = {k: eng.stats[k] - stats0[k] for k in eng.stats}
-    log(f"main path: {total_bytes / secs / 1e6:.2f} MB/s ({secs:.2f} s, {len(tokens)} tokens); "
-        f"chunks {run['chunks']}, worst-case re-runs {run['worst_case_chunks']}, "
-        f"fallback documents {run['fallback_docs']}; launches {launches}")
-    log("main path host-clock phases (s): " + ", ".join(
-        f"{k}={v:.3f}" for k, v in eng.timing.items()))
+    per = new_per()
+    calls3, chunk_ms = kernel_phase(enc, docs)
+    measure(calls3, per, "v3")
+    phase_s = {"4": time.perf_counter() - t0}
+
+    # ---- 4b: the same on a v2 chunk and its v1 re-run -------------------------
+    t0 = time.perf_counter()
+    calls2, calls1, chunk2_ms, rows1_ms = kernel_phase2(enc, docs)
+    measure(calls2, per, "v2")
+    measure(calls1, per, "v1")
+    for k, e in per.items():
+        if not e["entries"]:
+            raise RuntimeError(f"kernel {k} did not run in any chunk program")
+    phase_s["4b"] = time.perf_counter() - t0
+
+    # ---- 5: the v3 main path --------------------------------------------------
+    t0 = time.perf_counter()
+    launches = {}
+    v3, run, secs = drive(enc, eng, all_docs, "v3", launches, pipeline=3)
+    tokens, offsets = v3
+    log(f"v3 main path: {total_bytes / secs / 1e6:.2f} MB/s ({secs:.2f} s, {len(tokens)} "
+        f"tokens); chunks {run['chunks']}, worst-case re-runs {run['worst_case_chunks']}, "
+        f"fallback documents {run['fallback_docs']}")
     busy = (run["chunks"] + run["worst_case_chunks"]) * chunk_ms / 1e3
-    log(f"device busy share of the main path: about {busy / secs:.3f} "
+    log(f"device busy share of the v3 main path: about {busy / secs:.3f} "
         f"({run['chunks'] + run['worst_case_chunks']} chunk programs x {chunk_ms:.3f} ms)")
-    for k in kernels.KERNELS:
-        if launches[k] <= 0:
-            raise RuntimeError(f"kernel {k} was not launched on the main path")
     if run["worst_case_chunks"] <= 0 or run["fallback_docs"] <= 0:
         raise RuntimeError("the edge documents took neither the worst-case re-run "
                            "nor the host fallback")
+    phase_s["5"] = time.perf_counter() - t0
+
+    # ---- 5b: the v2 main path, then a chunk that overflows into v1 ------------
+    t0 = time.perf_counter()
+    v2, run2, secs2 = drive(enc, eng, all_docs, "v2", launches, pipeline=2)
+    tokens2, offsets2 = v2
+    log(f"v2 main path: {total_bytes / secs2 / 1e6:.2f} MB/s ({secs2:.2f} s, {len(tokens2)} "
+        f"tokens); chunks {run2['chunks']}, v1 re-runs {run2['v1_fallback_chunks']}, "
+        f"fallback documents {run2['fallback_docs']}")
+    busy2 = (run2["chunks"] * chunk2_ms + run2["v1_fallback_chunks"] * rows1_ms) / 1e3
+    log(f"device busy share of the v2 main path: about {busy2 / secs2:.3f} "
+        f"({run2['chunks']} chunk programs x {chunk2_ms:.3f} ms)")
+    words = [random_words(400_000, seed=11)]
+    words_bytes = len(words[0])
+    vo, run_o, secs_o = drive(enc, eng, words, "v2_overflow", launches, pipeline=2)
+    log(f"v2 overflow call: {words_bytes} bytes of random words in {secs_o:.2f} s; chunks "
+        f"{run_o['chunks']}, v1 re-runs {run_o['v1_fallback_chunks']}, fallback documents "
+        f"{run_o['fallback_docs']}")
+    if run_o["v1_fallback_chunks"] <= 0:
+        raise RuntimeError("the overflow call did not re-run a chunk through v1")
+    for path, entry in (("v2", "tt_seq_scan"), ("v2_overflow", "tt_window_scan"),
+                        ("v2_overflow", "tt_orbit"), ("v2_overflow", "tt_grid_merge")):
+        if launches[path]["entries"].get(entry, 0) <= 0:
+            raise RuntimeError(f"{entry} was not launched on the {path} path")
+    phase_s["5b"] = time.perf_counter() - t0
 
     # ---- 6: correctness ----------------------------------------------------
     t0 = time.perf_counter()
@@ -515,17 +720,42 @@ def main() -> int:
             raise RuntimeError(f"document {i}: device ids differ from the host encoder")
     log(f"correctness: {len(all_docs)} documents decode exactly; {len(set(check))} "
         f"documents equal the host encoder ({time.perf_counter() - t0:.1f} s)")
+    phase_s["6"] = time.perf_counter() - t0
+
+    # ---- 6b: v2 against v3 and the host encoder -------------------------------
+    t0 = time.perf_counter()
+    if not (np.array_equal(offsets2, offsets) and np.array_equal(tokens2, tokens)):
+        bad = [i for i in range(len(all_docs))
+               if not np.array_equal(tokens2[offsets2[i] : offsets2[i + 1]],
+                                     tokens[offsets[i] : offsets[i + 1]])]
+        raise RuntimeError(f"v2 ids differ from v3 ids in documents {bad[:10]}")
+    if vo[0].tolist() != enc.encode_ordinary(words[0]):
+        raise RuntimeError("the overflow call's ids differ from the host encoder")
+    log(f"correctness v2: {len(all_docs)} documents equal the v3 ids ({len(tokens2)} tokens); "
+        f"the overflow call equals the host encoder ({time.perf_counter() - t0:.1f} s)")
+    phase_s["6b"] = time.perf_counter() - t0
+    log("phase seconds: " + ", ".join(f"{k}={v:.1f}" for k, v in phase_s.items()))
 
     rows = []
     for k in kernels.KERNELS:
         e = per[k]
+        by_path = {path: launches[path]["kernels"][k] for path in PATH_KERNELS}
         rows.append(dict(
             name=k, route="cuda", source=f"tiktoken_tpu_torch/csrc/{k}.cu",
-            replaces=REPLACES[k], jax_functions=JAX_FUNCTIONS[k], launches=launches[k],
+            replaces=REPLACES[k], jax_functions=JAX_FUNCTIONS[k],
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=e["max_abs_err"], match=e["match"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by="bytes" if e["bytes_bound_ms"] >= e["ops_bound_ms"] else "operations",
             library_ms=e["library_ms"],
+            by_program={prog: dict(
+                ms=sum(x["ms"] for x in e["entries"] if x["program"] == prog),
+                plain_ms=sum(x["plain_ms"] for x in e["entries"] if x["program"] == prog),
+                bound_ms=sum(x["bound_ms"] for x in e["entries"] if x["program"] == prog),
+                library_ms=sum(x["library_ms"] or 0.0 for x in e["entries"]
+                               if x["program"] == prog) or None)
+                for prog in ("v3", "v2", "v1")
+                if any(x["program"] == prog for x in e["entries"])},
         ))
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -533,6 +763,31 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def drive(enc, eng, texts, path: str, launches: dict, *, pipeline: int):
+    """One main-path call of ``encode_corpus_to_numpy`` on ``cuda`` with
+    the launch counts set to 0 just before and read just after; fails if
+    a kernel of the path was not launched. Returns (result, stats delta,
+    seconds)."""
+    from tiktoken_tpu_torch.ops import kernels
+
+    stats0 = dict(eng.stats)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = enc.encode_corpus_to_numpy(texts, device="cuda", pipeline=pipeline)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches[path] = {"kernels": dict(kernels.launches), "entries": dict(kernels.entry_launches)}
+    log(f"{path} launches: {launches[path]['kernels']}; by entry point "
+        f"{launches[path]['entries']}")
+    log(f"{path} host-clock phases (s): " + ", ".join(
+        f"{k}={v:.3f}" for k, v in eng.timing.items()))
+    for k in PATH_KERNELS[path]:
+        if launches[path]["kernels"][k] <= 0:
+            raise RuntimeError(f"kernel {k} was not launched on the {path} path")
+    return out, {k: eng.stats[k] - stats0[k] for k in eng.stats}, secs
 
 
 if __name__ == "__main__":

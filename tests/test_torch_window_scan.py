@@ -1,0 +1,150 @@
+"""PyTorch port: the byte-level scanners (B9, B11, B12).
+
+The byte-level ``compile_pattern`` gives the JAX package's arrays; the
+plain ``seq_scan``, ``window_scan`` and ``orbit`` (the CPU paths of the
+``byte_scan`` kernel) equal the jitted JAX functions on XLA:CPU and the
+numpy specs, on the same rows cut by the port's ``pack_documents``.
+Integers, so equality is exact. Where ``window_scan`` trips its u_cap,
+every position is unresolved in both; the hop there is compared with the
+single-sweep numpy spec, since the JAX hop of positions past the first
+u_cap unresolved ones keeps its first-phase value."""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tests.helpers import make_mixed_corpus, pat_str
+
+CJK = "東京タワーは高い。パリは花の都、そして京都は古都です。"
+K, LOOK, W = 64, 16, 48
+KL = K + LOOK
+
+
+@pytest.fixture(scope="module")
+def dfas():
+    from tiktoken_tpu.ops.regex_compiler import compile_pattern as jcompile
+
+    from tiktoken_tpu_torch.ops.regex_compiler import compile_pattern
+
+    return {name: (jcompile(pat_str(name)), compile_pattern(pat_str(name)))
+            for name in ("o200k", "cl100k")}
+
+
+@pytest.mark.parametrize("name", ["o200k", "cl100k"])
+def test_byte_compile_pattern_matches_jax(dfas, name):
+    jd, pd = dfas[name]
+    for f in ("trans", "accept", "class_of"):
+        a, b = getattr(jd, f), getattr(pd, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert (pd.n_states, pd.n_classes) == (jd.n_states, jd.n_classes)
+    from tiktoken_tpu_torch.ops.regex_compiler import scan_bytes
+
+    text = make_mixed_corpus(3000, seed=4).encode() + CJK.encode()
+    from tiktoken_tpu.ops.regex_compiler import scan_bytes as jscan
+
+    assert scan_bytes(pd, text) == jscan(jd, text)
+
+
+def _rows(texts, n_rows: int):
+    from tiktoken_tpu_torch.ops.engine import pack_documents
+
+    b = pack_documents([t if isinstance(t, bytes) else t.encode() for t in texts], K)
+    rows = np.zeros((n_rows, KL), np.uint8)
+    pay = np.zeros(n_rows, np.int32)
+    tot = np.zeros(n_rows, np.int32)
+    n = min(n_rows, b.rows.shape[0])
+    rows[:n], pay[:n], tot[:n] = b.rows[:n], b.n_payload[:n], b.n_total[:n]
+    return rows, pay, tot
+
+
+def _table(dfa):
+    from tiktoken_tpu_torch.ops.window_scan import byte_scan_table
+
+    return byte_scan_table(dfa)
+
+
+TEXTS = {
+    "mixed": [make_mixed_corpus(1500, seed=s) for s in range(2)],
+    "edges": ["a\n b", "today\n \n", "x" * 200, "0" * 90, CJK * 3, b"ok \xff\xfe bytes",
+              "🌍🌍🌍 emoji soup 🚀", "don't you're it's", ""],
+}
+
+
+@pytest.mark.parametrize("corpus", ["mixed", "edges"])
+def test_seq_scan_matches_jax_and_numpy(dfas, corpus):
+    from tiktoken_tpu.ops.window_scan import make_seq_scan_fn
+
+    from tiktoken_tpu_torch.ops.window_scan import byte_class_grid, seq_scan, seq_scan_numpy
+
+    dfa = dfas["o200k"][1]
+    packed = _table(dfa)
+    rows, pay, tot = _rows(TEXTS[corpus], 32)
+    cls = byte_class_grid(torch.from_numpy(rows), torch.from_numpy(tot), KL + 1)
+    ps, bad = seq_scan(torch.from_numpy(packed), torch.from_numpy(rows), torch.from_numpy(pay),
+                       torch.from_numpy(tot), K=K)
+    jps, jbad = (np.asarray(x) for x in jax.jit(make_seq_scan_fn(KL, K, 257, 256))(
+        packed, cls.numpy(), pay, tot))
+    np.testing.assert_array_equal(ps.numpy(), jps)
+    np.testing.assert_array_equal(bad.numpy(), jbad)
+    for b in range(rows.shape[0]):
+        m, nb = seq_scan_numpy(dfa, packed, cls.numpy()[b], pay[b], tot[b], K)
+        np.testing.assert_array_equal(ps.numpy()[b], m)
+        assert bool(bad[b]) == nb
+    if corpus == "edges":
+        assert bad.any()  # the stray bytes make no progress
+
+
+@pytest.mark.parametrize("case", ["mixed", "u_cap_overflow"])
+def test_window_scan_matches_jax_and_numpy(dfas, case):
+    from tiktoken_tpu.ops.window_scan import make_window_scan_fn
+
+    from tiktoken_tpu_torch.ops.window_scan import byte_class_grid, match_ends_numpy, window_scan
+
+    dfa = dfas["o200k"][1]
+    packed = _table(dfa)
+    texts = TEXTS["mixed"] + TEXTS["edges"] if case == "mixed" else ["x" * 1000]
+    rows, _pay, tot = _rows(texts, 8)
+    cls = byte_class_grid(torch.from_numpy(rows), torch.from_numpy(tot), K + W)
+    hop, unres = (x.numpy() for x in window_scan(torch.from_numpy(packed), torch.from_numpy(rows),
+                                                 torch.from_numpy(tot), K=K, window=W))
+    jhop, junres = (np.asarray(x) for x in jax.jit(make_window_scan_fn(W, dfa.n_states, 257))(
+        packed, cls.numpy()))
+    np.testing.assert_array_equal(unres, junres)
+    overflow = case == "u_cap_overflow"
+    assert unres.all() == overflow
+    if not overflow:
+        np.testing.assert_array_equal(hop, jhop)
+    for b in range(rows.shape[0]):
+        # the numpy spec runs to the end of the grid row, EOF after it
+        nh, nu = match_ends_numpy(dfa, dfa.class_of[cls.numpy()[b]].astype(np.int64), W)
+        np.testing.assert_array_equal(hop[b], nh[:K])
+        if not overflow:
+            np.testing.assert_array_equal(unres[b], nu[:K])
+
+
+def test_orbit_matches_jax(dfas):
+    from tiktoken_tpu.ops.window_scan import make_orbit_fn
+
+    from tiktoken_tpu_torch.ops.window_scan import orbit, window_scan
+
+    dfa = dfas["o200k"][1]
+    packed = _table(dfa)
+    rows, pay, tot = _rows(TEXTS["mixed"] + TEXTS["edges"], 24)
+    hop, unres = window_scan(torch.from_numpy(packed), torch.from_numpy(rows),
+                             torch.from_numpy(tot), K=K, window=W)
+    # plus random hops: zeros and long jumps end chains, some rows empty
+    rng = np.random.default_rng(5)
+    rhop = rng.integers(-1, 9, (8, K)).astype(np.int32)
+    runres = rng.random((8, K)) < 0.05
+    rlen = rng.integers(0, K + 1, 8).astype(np.int32)
+    fn = jax.jit(make_orbit_fn(K))
+    for h, u, v in ((hop.numpy(), unres.numpy(), pay), (rhop, runres, rlen)):
+        ps, bad = (x.numpy() for x in orbit(torch.from_numpy(h), torch.from_numpy(u),
+                                           torch.from_numpy(v)))
+        jps = np.asarray(fn(h, v))
+        np.testing.assert_array_equal(ps, jps)
+        # the JAX v1 program's row flags (ops/engine.py build_pipeline_fn)
+        np.testing.assert_array_equal(bad, (jps & (u | (h <= 0))).any(axis=1))

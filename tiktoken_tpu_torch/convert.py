@@ -1,28 +1,33 @@
 """Carry compiled tables across from the JAX engine.
 
 For a tokenizer the "weights" are the compiled tables: the char-class
-pages and scanner DFA, the pair table, and the short and long vocabulary
-tables. ``tables_from_numpy`` takes them as numpy arrays (for example the
+pages and scanner DFA, the byte-level scanner DFA, the pair table, and
+the short and long vocabulary tables. ``tables_from_numpy`` takes them as numpy arrays (for example the
 fields of a JAX ``DeviceEngine``'s tables), moves them into the port's
 table objects and puts them on a device, ready for
 ``ops.engine.TorchEngine``.
 
 Expected keys. ``arrays``: ``page_entry``, ``mixed_rows``, ``trans``,
 ``accept`` (CharClassTables), ``pair_buckets``, ``byte_to_rank``,
-``vocab_buckets``, ``long_buckets``. ``meta``: ``n_classes``,
-``eof_class``, ``n_states``, ``pair_seed``, ``n_vocab``, ``vocab_seed``,
-``long_seed``.
+``vocab_buckets``, ``long_buckets``, and optionally the byte-level
+``ScannerDFA``'s ``byte_trans``, ``byte_accept``, ``byte_class_of``.
+``meta``: ``n_classes``, ``eof_class``, ``n_states``, ``pair_seed``,
+``n_vocab``, ``vocab_seed``, ``long_seed``, and with the byte-level
+arrays ``byte_n_states``, ``byte_n_classes``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tiktoken_tpu_torch.ops.charclass import CharClassTables
 from tiktoken_tpu_torch.ops.engine import resolve_device
 from tiktoken_tpu_torch.ops.pair_table import EMPTY_KEY, PairTable
 from tiktoken_tpu_torch.ops.pieces import LongVocabTable, VocabTable
 from tiktoken_tpu_torch.ops.pipeline3 import ChunkTables, upload_tables
+from tiktoken_tpu_torch.ops.regex_compiler import ScannerDFA
+from tiktoken_tpu_torch.ops.window_scan import byte_scan_table
 
 
 def host_tables_from_numpy(arrays: dict[str, np.ndarray], meta: dict[str, int]):
@@ -55,8 +60,27 @@ def host_tables_from_numpy(arrays: dict[str, np.ndarray], meta: dict[str, int]):
     return char, pair, vocab, long
 
 
+def _byte_dfa(arrays: dict[str, np.ndarray], meta: dict[str, int]) -> ScannerDFA:
+    """The port's byte-level ``ScannerDFA`` over the given arrays."""
+    trans = np.asarray(arrays["byte_trans"])
+    dfa = ScannerDFA(trans=trans, accept=np.asarray(arrays["byte_accept"], np.int8),
+                     class_of=np.asarray(arrays["byte_class_of"]),
+                     n_states=int(meta["byte_n_states"]), n_classes=int(meta["byte_n_classes"]),
+                     pat_str="")
+    if trans.shape != (dfa.n_states, dfa.n_classes):
+        raise ValueError(f"byte_trans has shape {trans.shape}, meta says "
+                         f"({dfa.n_states}, {dfa.n_classes})")
+    return dfa
+
+
 def tables_from_numpy(arrays: dict[str, np.ndarray], meta: dict[str, int],
                       device="cuda") -> ChunkTables:
-    """Upload the given table arrays to ``device`` as the chunk program's
-    tables."""
-    return upload_tables(*host_tables_from_numpy(arrays, meta), resolve_device(device))
+    """Upload the given table arrays to ``device`` as the chunk programs'
+    tables (with the v2/v1 byte-level scan table when the byte-level
+    arrays are given)."""
+    dev = resolve_device(device)
+    tables = upload_tables(*host_tables_from_numpy(arrays, meta), dev)
+    if "byte_trans" in arrays:
+        tables.byte_scan = torch.as_tensor(byte_scan_table(_byte_dfa(arrays, meta)),
+                                           device=dev)
+    return tables

@@ -4,7 +4,8 @@ The same constructor and method names as the reference library's
 ``Encoding`` for the part this package covers: host ``encode_ordinary``,
 ``decode`` / ``decode_bytes``, and the corpus encoder on the GPU
 (``encode_corpus`` / ``encode_corpus_to_numpy``), which runs on ``cuda``
-unless the caller passes ``device="cpu"``.
+unless the caller passes ``device="cpu"``, through the v3 program
+(``pipeline=3``, the default) or the v2 one (``pipeline=2``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from tiktoken_tpu_torch._pybpe import HostBPE
-from tiktoken_tpu_torch.ops.engine import TorchEngine, resolve_device
+from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, TorchEngine, resolve_device
 
 
 class Encoding:
@@ -86,6 +87,17 @@ class Encoding:
             self._engines[dev] = eng
         return eng
 
+    def _encode_corpus(self, texts, device, row_capacity, chunk_rows, pipeline, as_numpy):
+        if pipeline not in (2, 3):
+            raise ValueError(f"pipeline must be 2 or 3, got {pipeline!r}")
+        eng = self.engine(device)
+        if pipeline == 2:
+            return eng.encode_corpus(texts, host_fallback=self._core_bpe,
+                                     row_capacity=row_capacity or DEFAULT_ROW,
+                                     chunk_rows=chunk_rows, as_numpy=as_numpy)
+        return eng.encode_corpus3(texts, host_fallback=self._core_bpe, K=row_capacity,
+                                  chunk_rows=chunk_rows, as_numpy=as_numpy)
+
     def encode_corpus(
         self,
         texts: Sequence[str] | Sequence[bytes],
@@ -93,12 +105,19 @@ class Encoding:
         device="cuda",
         row_capacity: int | None = None,
         chunk_rows: int | None = None,
+        pipeline: int = 3,
     ) -> list[list[int]]:
         """Encode a batch of documents on ``device`` ("cuda" by default);
-        byte-exact with ``encode_ordinary``."""
-        return self.engine(device).encode_corpus3(
-            texts, host_fallback=self._core_bpe, K=row_capacity, chunk_rows=chunk_rows,
-        )
+        byte-exact with ``encode_ordinary``.
+
+        ``pipeline=3`` (the default) runs the v3 program: handshake rows
+        and the char-level scanner. ``pipeline=2`` runs the v2 program with
+        the byte-level sequential scanner over rows cut at safe split
+        points (``row_capacity`` bytes each, 256 by default), and re-runs a
+        chunk whose caps overflow through the v1 program: the JAX
+        package's ``TIKTOKEN_TPU_SCANNER=seq`` route. Its byte-level scan
+        table is compiled and uploaded at the first v2 call."""
+        return self._encode_corpus(texts, device, row_capacity, chunk_rows, pipeline, False)
 
     def encode_corpus_to_numpy(
         self,
@@ -107,14 +126,12 @@ class Encoding:
         device="cuda",
         row_capacity: int | None = None,
         chunk_rows: int | None = None,
+        pipeline: int = 3,
     ) -> tuple[np.ndarray, np.ndarray]:
         """``encode_corpus`` with array output: ``(tokens, offsets)``, where
         document ``i``'s ids are ``tokens[offsets[i]:offsets[i+1]]``
         (uint32 / int64)."""
-        per_doc = self.engine(device).encode_corpus3(
-            texts, host_fallback=self._core_bpe, K=row_capacity, chunk_rows=chunk_rows,
-            as_numpy=True,
-        )
+        per_doc = self._encode_corpus(texts, device, row_capacity, chunk_rows, pipeline, True)
         offsets = np.zeros(len(per_doc) + 1, dtype=np.int64)
         np.cumsum([len(a) for a in per_doc], out=offsets[1:])
         tokens = (np.concatenate(per_doc).astype(np.uint32, copy=False)

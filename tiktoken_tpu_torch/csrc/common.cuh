@@ -1,5 +1,6 @@
 // Shared helpers of the port's CUDA kernels: the uint32 hashes of the
-// JAX package's tables and a block-wide exclusive prefix sum.
+// JAX package's tables, the pair-table probe and a block-wide exclusive
+// prefix sum.
 //
 // Every kernel of this directory is built by nvcc into its own shared
 // library with a plain C interface (tiktoken_tpu_torch/ops/kernels.py),
@@ -20,6 +21,23 @@ __device__ __forceinline__ uint32_t mix_pair(uint32_t a, uint32_t b, uint32_t se
   h *= 0x2C1B3C6Du;
   h ^= h >> 12;
   return h;
+}
+
+constexpr uint32_t RANK_MAX = 0xFFFFFFFFu;
+
+// The rank of the pair (a, b) in the pair table ([n_buckets, 32] uint32,
+// 8 slots of (key_a, key_b, rank, pad) per 128-byte bucket row; mask =
+// n_buckets - 1), RANK_MAX if absent: one row read, 8 compares.
+__device__ __forceinline__ uint32_t pair_rank(const uint32_t* __restrict__ buckets, uint32_t mask,
+                                              uint32_t seed, uint32_t a, uint32_t b) {
+  const uint32_t h = mix_pair(a, b, seed) & mask;
+  const uint4* row = reinterpret_cast<const uint4*>(buckets + static_cast<long long>(h) * 32);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const uint4 q = __ldg(row + s);  // (key_a, key_b, rank, pad)
+    if (q.x == a && q.y == b) return q.z;
+  }
+  return RANK_MAX;
 }
 
 // ops/pieces.py:_mix_words (NW = 4) and _mix_words16 (NW = 16).

@@ -1,6 +1,6 @@
-// compaction: stable stream compaction, the piece catalog, row-wise
-// compaction, monotone routing and the expansion of per-piece token counts
-// into the token stream of a v3 chunk.
+// compaction: stable stream compaction, the piece catalogs, row-wise
+// compaction, slot extraction, monotone routing and the expansion of
+// per-piece token counts into the token stream of a v3 or v2 chunk.
 //
 // Replaces (JAX package): ops/compaction.py compact (the piece catalog of
 // ops/pipeline3.py build_pipeline3_fn (B5) with its piece lengths,
@@ -8,8 +8,15 @@
 // long compactions of B7/B8 with their slot prefix sums), route_right
 // (pipeline3.py) and ops/compaction.py expand with the token fetch that
 // follows it (B8). Those are scatter-free radix routes, built so because
-// scatters are slow on the TPU. Plain PyTorch versions: ops/compaction.py
-// catalog, compact_slots, compact_rows, route_right, expand_tokens.
+// scatters are slow on the TPU. For v2 (B10): ops/pieces.py
+// make_catalog_fn and make_extract_fn with the too-long row flags of
+// ops/pipeline2.py (tt_catalog2), its extract_long (tt_extract_slots),
+// and its assembly, the masked scatters of singles, short-miss and long
+// tokens at off + rank with the per-row token counts
+// (tt_expand_tokens_rows: the v3 expansion, whose contract fits, plus
+// the row counts, which it does not give). Plain PyTorch versions:
+// ops/compaction.py catalog, catalog2, compact_slots, compact_rows,
+// extract_slots, route_right, expand_tokens, expand_tokens_rows.
 //
 // What bounds it on the H100: bytes. A chunk's catalog reads ~7.3 M mask
 // bytes and writes up to ~1.5 M entries of 24 bytes; the other entry
@@ -250,6 +257,90 @@ __global__ void expand_tail_kernel(const int* __restrict__ total, long long out_
   tok[j] = 0;
 }
 
+// the v2 catalog: grid position i = row * K + col is its own flat index
+struct Catalog2Emit {
+  int* starts;
+  __device__ void operator()(long long i, long long dst) const { starts[dst] = static_cast<int>(i); }
+};
+
+// v2 catalog entry j: C*K past the count; its length runs to the next
+// start, capped at its row's payload end; its row is flagged when the
+// piece is longer than LONG_SLOT; its first min(len, 16) bytes from the
+// row as 4 little-endian words, zero after
+__global__ void catalog2_finish_kernel(const int* __restrict__ count, long long out_size,
+                                       const uint8_t* __restrict__ rows, int C, int K, int KL,
+                                       const int* __restrict__ n_payload, int* __restrict__ starts,
+                                       int* __restrict__ lens, uint32_t* __restrict__ words,
+                                       uint8_t* __restrict__ row_bad) {
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= out_size) return;
+  const long long N = static_cast<long long>(C) * K;
+  const long long n = *count;
+  if (j >= n) {
+    starts[j] = static_cast<int>(N);
+    lens[j] = 0;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) words[j * 4 + w] = 0;
+    return;
+  }
+  const int s = starts[j];
+  const long long next = (j + 1 < n && j + 1 < out_size) ? starts[j + 1] : N;
+  const int prow = min(s / K, C - 1);
+  const long long row_end = static_cast<long long>(prow) * K + n_payload[prow];
+  const long long end = min(next > s ? next : N, row_end);
+  const int len = static_cast<int>(max(end - s, 0LL));
+  lens[j] = len;
+  if (len > LONG_SLOT) row_bad[prow] = 1;
+  const int nb = min(len, SLOT);
+  const int col = s - prow * K;
+  const uint8_t* row = rows + static_cast<long long>(prow) * KL;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int c = 4 * w + b;
+      if (c < nb && col + c < KL) word |= static_cast<uint32_t>(row[col + c]) << (8 * b);
+    }
+    words[j * 4 + w] = word;
+  }
+}
+
+// slot extraction: word w of piece i = its bytes 4w..4w+3 from its row,
+// zero past min(len, width) and past the row
+__global__ void extract_slots_kernel(const uint8_t* __restrict__ rows, int C, int KL, int K,
+                                     const int* __restrict__ starts, const int* __restrict__ lens,
+                                     int n, int width, uint32_t* __restrict__ out) {
+  const int wpp = width / 4;
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<long long>(n) * wpp) return;
+  const int i = static_cast<int>(t / wpp);
+  const int w = static_cast<int>(t - static_cast<long long>(i) * wpp);
+  const int s = starts[i];
+  const int nb = min(max(lens[i], 0), width);
+  uint32_t word = 0;
+  if (s >= 0 && static_cast<long long>(s) < static_cast<long long>(C) * K) {
+    const int prow = s / K;
+    const int col = s - prow * K;
+    const uint8_t* row = rows + static_cast<long long>(prow) * KL;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int c = 4 * w + b;
+      if (c < nb && col + c < KL) word |= static_cast<uint32_t>(row[col + c]) << (8 * b);
+    }
+  }
+  out[t] = word;
+}
+
+// per-row token counts: piece i adds counts[i] to row min(starts[i] / K,
+// n_rows - 1)
+__global__ void row_counts_kernel(const int* __restrict__ counts, const int* __restrict__ starts,
+                                  long long n, int K, int n_rows, int* __restrict__ row_counts) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n || counts[i] == 0) return;
+  atomicAdd(row_counts + min(max(starts[i], 0) / K, n_rows - 1), counts[i]);
+}
+
 int n_tiles_of(long long n) { return static_cast<int>((n + TILE - 1) / TILE); }
 
 unsigned blocks_of(long long n, int tpb) { return static_cast<unsigned>((n + tpb - 1) / tpb); }
@@ -350,6 +441,59 @@ extern "C" int tt_expand_tokens(const void* counts, const void* combo, long long
     expand_tail_kernel<<<blocks_of(out_size, 256), 256, 0, st>>>(static_cast<const int*>(total),
                                                                  out_size, static_cast<int*>(tok));
   return static_cast<int>(cudaGetLastError());
+}
+
+// v2 piece catalog over the start grid [C, K] of rows [C, KL]: starts,
+// lengths, padded words and row_bad_out = row_bad | too-long rows
+extern "C" int tt_catalog2(const void* mask, int C, int K, const void* n_payload, const void* rows,
+                           int KL, const void* row_bad, long long out_size, void* starts,
+                           void* words, void* lens, void* row_bad_out, void* count, void* scratch,
+                           void* stream) {
+  const long long n = static_cast<long long>(C) * K;
+  if (n <= 0 || K > KL || out_size <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  copy_flags_kernel<<<blocks_of(C, 256), 256, 0, st>>>(static_cast<const uint8_t*>(row_bad), C,
+                                                      static_cast<uint8_t*>(row_bad_out));
+  compact_any(static_cast<const uint8_t*>(mask), n, out_size,
+              Catalog2Emit{static_cast<int*>(starts)}, nullptr, static_cast<int*>(count),
+              static_cast<long long*>(scratch), st);
+  catalog2_finish_kernel<<<blocks_of(out_size, 256), 256, 0, st>>>(
+      static_cast<const int*>(count), out_size, static_cast<const uint8_t*>(rows), C, K, KL,
+      static_cast<const int*>(n_payload), static_cast<int*>(starts), static_cast<int*>(lens),
+      static_cast<uint32_t*>(words), static_cast<uint8_t*>(row_bad_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// slots [n, width] u8 of the pieces at flat grid starts [n] with lens [n]
+// from rows [C, KL] (grid rows of K columns); width a multiple of 4
+extern "C" int tt_extract_slots(const void* rows, int C, int KL, int K, const void* starts,
+                                const void* lens, int n, int width, void* out, void* stream) {
+  if (C <= 0 || K <= 0 || width <= 0 || width % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0)
+    extract_slots_kernel<<<blocks_of(static_cast<long long>(n) * (width / 4), 256), 256, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(rows), C, KL, K, static_cast<const int*>(starts),
+        static_cast<const int*>(lens), n, width, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tt_expand_tokens plus the token count of each of n_rows rows of K grid
+// columns, by the flat grid start of each piece
+extern "C" int tt_expand_tokens_rows(const void* counts, const void* combo, long long n,
+                                     const void* m_tok, long long n_m, const void* l_tok,
+                                     long long n_l, long long out_size, const void* starts, int K,
+                                     int n_rows, void* tok, void* total, void* row_counts,
+                                     void* scratch, void* stream) {
+  if (K <= 0 || n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(row_counts, 0, static_cast<size_t>(n_rows) * 4, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n > 0)
+    row_counts_kernel<<<blocks_of(n, 256), 256, 0, st>>>(
+        static_cast<const int*>(counts), static_cast<const int*>(starts), n, K, n_rows,
+        static_cast<int*>(row_counts));
+  return tt_expand_tokens(counts, combo, n, m_tok, n_m, l_tok, n_l, out_size, tok, total, scratch,
+                          stream);
 }
 
 extern "C" int tt_tiles(long long n) { return n_tiles_of(n); }

@@ -23,19 +23,8 @@
 
 namespace {
 
-constexpr uint32_t RANK_MAX = 0xFFFFFFFFu;
-
-__device__ __forceinline__ uint32_t pair_rank(const uint32_t* __restrict__ buckets, uint32_t mask,
-                                              uint32_t seed, uint32_t a, uint32_t b) {
-  const uint32_t h = tt::mix_pair(a, b, seed) & mask;
-  const uint4* row = reinterpret_cast<const uint4*>(buckets + static_cast<long long>(h) * 32);
-#pragma unroll
-  for (int s = 0; s < 8; ++s) {
-    const uint4 q = __ldg(row + s);  // (key_a, key_b, rank, pad)
-    if (q.x == a && q.y == b) return q.z;
-  }
-  return RANK_MAX;
-}
+using tt::pair_rank;
+using tt::RANK_MAX;
 
 template <int W>
 __global__ void slot_merge_kernel(const uint32_t* __restrict__ buckets, uint32_t mask,

@@ -12,12 +12,14 @@ plain PyTorch versions, with exactly the JAX contracts:
   out_size``, zero elsewhere;
 - ``expand``: returns ``(payloads, k, valid, total)``.
 
-The chunk program calls the kernel's functions, which carry those
-contracts plus what the program needs around them: ``catalog`` (the
+The chunk programs call the kernel's functions, which carry those
+contracts plus what the programs need around them: ``catalog`` (the v3
 piece catalog with lengths, too-long row flags and padded words),
-``compact_slots`` (``compact`` with each entry's slot), ``compact_rows``
-(with per-row counts) and ``expand_tokens`` (``expand`` with the token
-fetch).
+``catalog2`` (the v2 one, over a [C, K] start grid), ``compact_slots``
+(``compact`` with each entry's slot), ``compact_rows`` (with per-row
+counts), ``extract_slots`` (the v2 long-piece slots), ``expand_tokens``
+(``expand`` with the token fetch) and ``expand_tokens_rows`` (with the
+token count of each row).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tiktoken_tpu_torch.ops import pieces
 from tiktoken_tpu_torch.ops.pieces import LONG_SLOT, SLOT
 
 
@@ -214,3 +217,49 @@ def catalog(rows: torch.Tensor, mask3: torch.Tensor, spec_f: torch.Tensor,
     b = torch.where(keep, flat[idx.clamp(max=flat.numel() - 1)], 0)
     words = b.to(torch.uint8).contiguous().view(torch.int32)  # [p_cap, 4]
     return starts, words, lens, row_bad, n
+
+
+def catalog2(piece_start: torch.Tensor, n_payload: torch.Tensor, rows: torch.Tensor,
+             row_bad: torch.Tensor, p_cap: int):
+    """The v2 piece catalog (B10): ``pieces.catalog`` of the start grid
+    piece_start [C, K], its pieces' words (``pieces.extract`` of rows [C,
+    KL] u8, whose first K columns are the grid's bytes), and row_bad [C]
+    OR the rows holding a piece longer than LONG_SLOT.
+    -> (starts [p_cap] i32, C*K past the count; words [p_cap, 4] i32;
+    lens [p_cap] i32; row_bad [C] bool; n_pieces i32 scalar)."""
+    C, K = piece_start.shape
+    starts, lens, n = pieces.catalog(piece_start, n_payload, p_cap)
+    words = pieces.extract(rows[:, :K].contiguous(), starts, lens)
+    too_long = lens > LONG_SLOT
+    row = (starts // K).clamp(max=C - 1).to(torch.int64)
+    flagged = torch.zeros(C + 1, dtype=torch.uint8, device=rows.device)
+    flagged.scatter_(0, torch.where(too_long, row, C), too_long.to(torch.uint8))
+    return starts, words, lens, row_bad | flagged[:C].bool(), n
+
+
+def extract_slots(rows: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
+                  K: int) -> torch.Tensor:
+    """(rows [C, KL] u8, starts [n] i32 flat indices into the [C, K] grid,
+    lens [n] i32) -> [n, LONG_SLOT] u8: each piece's bytes from its row,
+    zero past min(len, LONG_SLOT) and past the row."""
+    width = LONG_SLOT
+    C, KL = rows.shape
+    s = starts.to(torch.int64)
+    b = torch.arange(width, device=rows.device)[None, :]
+    col = (s % K)[:, None] + b
+    keep = (col < KL) & (b < lens.clamp(0, width)[:, None]) & (s < C * K)[:, None]
+    idx = (s // K).clamp(max=C - 1)[:, None] * KL + col.clamp(max=KL - 1)
+    return torch.where(keep, rows.reshape(-1)[idx], 0).to(torch.uint8)
+
+
+def expand_tokens_rows(counts: torch.Tensor, combo: torch.Tensor, m_tok: torch.Tensor,
+                       l_tok: torch.Tensor, out_size: int, starts: torch.Tensor, K: int,
+                       n_rows: int):
+    """``expand_tokens`` plus each row's token count: piece i adds
+    counts[i] to row min(starts[i] // K, n_rows - 1).
+    -> (tokens [out_size] i32, total i32, row_counts [n_rows] i32)."""
+    tok, total = expand_tokens(counts, combo, m_tok, l_tok, out_size)
+    row = (starts // K).clamp(max=n_rows - 1).to(torch.int64)
+    row_counts = torch.zeros(n_rows, dtype=torch.int64, device=counts.device)
+    row_counts.scatter_add_(0, row, counts.to(torch.int64))
+    return tok, total, row_counts.to(torch.int32)

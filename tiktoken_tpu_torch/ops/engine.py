@@ -1,13 +1,23 @@
 """The GPU engine: corpus bytes -> token ids, end to end.
 
 ``TorchEngine`` is the counterpart of the JAX package's ``DeviceEngine``
-on its v3 path (``encode_corpus3``). It builds the tables once, uploads
-them to its device once, packs documents into handshake rows on the host,
-runs one chunk program (``ops/pipeline3.run_chunk``) per chunk, re-runs a
-chunk whose caps overflowed through the ``worst_case`` variant, stitches
-the per-row token streams back into documents, and hands documents the
-device could not finish exactly (``row_bad`` rows: handshake failures,
-pieces over 64 bytes) to the host engine. Those fallbacks are counted in
+on two of its paths:
+
+- v3 (``encode_corpus3``): documents packed into handshake rows, one
+  ``ops/pipeline3.run_chunk`` per chunk, a chunk whose caps overflowed
+  re-run through the ``worst_case`` variant;
+- v2 with the byte-level scanner (``encode_corpus``, the JAX package's
+  ``TIKTOKEN_TPU_SCANNER=seq`` route): documents cut at safe split points
+  (``pack_documents``), one ``ops/pipeline2.run_chunk2`` per chunk, a
+  chunk whose caps overflowed re-run through the v1 program
+  (``run_rows1``), counted in ``stats["v1_fallback_chunks"]``.
+
+The engine builds the tables once and uploads them to its device once;
+the byte-level scan table only at the first v2/v1 call, so the v3 path
+never pays for it. Both paths stitch the per-row token streams back into
+documents and hand documents the device could not finish exactly
+(``row_bad`` rows: handshake failures or unresolved scans, pieces over 64
+bytes, v2 hard cuts) to the host engine. Those fallbacks are counted in
 ``stats["fallback_docs"]``; they are never silent.
 
 Chunk inputs go up as plain pinned-memory copies on the current CUDA
@@ -17,6 +27,8 @@ stream; every chunk is enqueued before the first header is read back.
 from __future__ import annotations
 
 import time
+import warnings
+from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
@@ -41,13 +53,15 @@ from tiktoken_tpu_torch.ops.pipeline3 import (
     run_chunk,
     upload_tables,
 )
-from tiktoken_tpu_torch.ops.regex_compiler import compile_pattern_chars
+from tiktoken_tpu_torch.ops.pipeline2 import DEFAULT_ROW, LOOK, run_chunk2, run_rows1
+from tiktoken_tpu_torch.ops.regex_compiler import compile_pattern, compile_pattern_chars
+from tiktoken_tpu_torch.ops.window_scan import byte_scan_table
 
 DEFAULT_CHUNK_ROWS = 32768
 # chunk sizes quantize to these tiers, so small corpora run small chunks
 # while the set of chunk shapes stays bounded
 _CHUNK_TIERS = (8, 128, 2048, 8192, DEFAULT_CHUNK_ROWS)
-MAX_K = 256  # scan work per row grows with the row buffer
+MAX_K = 256  # v3: scan work per row grows with the row buffer
 
 
 def quantize_chunk_rows(need: int, cap: int) -> int:
@@ -73,6 +87,98 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def _find_safe_splits(data: np.ndarray) -> np.ndarray:
+    """Offsets guaranteed to start a piece in any context, for all shipped
+    patterns (the JAX package's rules, validated there):
+
+    - newline -> ASCII letter: data[i-1] in {\\r,\\n}, data[i] a letter;
+    - printable -> space -> ASCII letter: data[i] == ' ', data[i+1] a
+      letter, data[i-1] ASCII printable non-space (the ' ?' prefixes bind
+      the space to the following word).
+
+    The second rule fires every few words in real text, so short rows
+    pack without hard cuts."""
+    if len(data) < 2:
+        return np.zeros(0, dtype=np.int64)
+    is_letter = ((data >= 0x41) & (data <= 0x5A)) | ((data >= 0x61) & (data <= 0x7A))
+    prev_nl = (data[:-1] == 0x0A) | (data[:-1] == 0x0D)
+    out = np.nonzero(prev_nl & is_letter[1:])[0] + 1
+    if len(data) >= 3:
+        sp_rule = ((data[1:-1] == 0x20) & is_letter[2:] & (data[:-2] >= 0x21)
+                   & (data[:-2] <= 0x7E))
+        out = np.union1d(out, np.nonzero(sp_rule)[0] + 1)
+    return out
+
+
+@dataclass
+class PackedBatch:
+    rows: np.ndarray  # [B, K+LOOK] uint8
+    n_payload: np.ndarray  # [B] int32: payload bytes in the row
+    n_total: np.ndarray  # [B] int32: payload+lookahead bytes actually valid
+    doc_index: np.ndarray  # [B] int32: which document each row belongs to
+    hard_cut_docs: frozenset  # docs with a row cut at an unsafe position
+    row_capacity: int  # K
+
+
+def _doc_row_bounds(n: int, splits: np.ndarray, K: int) -> tuple[np.ndarray, bool]:
+    """Greedy row boundaries for one document: each cut is the last safe
+    split within K bytes of the previous cut (the greedy jump function is
+    one vectorized searchsorted over all splits). Stretches with no safe
+    split within K bytes are force-cut at pos+K (a hard cut: the whole
+    document goes to the host)."""
+    if n <= K:
+        return np.asarray([0, n], dtype=np.int64), False
+    jump = np.searchsorted(splits, splits + K, side="right") - 1 if len(splits) else None
+    bounds = [0]
+    hard = False
+    pos = 0
+    # index of the last split <= pos + K, maintained incrementally
+    i = int(np.searchsorted(splits, K, side="right")) - 1
+    while n - pos > K:
+        if i >= 0 and splits[i] > pos:
+            end = int(splits[i])
+            i = int(jump[i])
+        else:
+            end = pos + K  # no safe split in range: hard cut
+            hard = True
+            i = int(np.searchsorted(splits, end + K, side="right")) - 1
+        bounds.append(end)
+        pos = end
+    bounds.append(n)
+    return np.asarray(bounds, dtype=np.int64), hard
+
+
+def pack_documents(docs: Sequence[bytes], row_capacity: int = DEFAULT_ROW) -> PackedBatch:
+    """Slice documents into independent rows of ``row_capacity`` payload
+    bytes plus LOOK continuation bytes, at safe split points."""
+    K = row_capacity
+    all_rows, all_payload, all_total, all_doc = [], [], [], []
+    hard_cut: set[int] = set()
+    for d_i, doc in enumerate(docs):
+        data = np.frombuffer(doc, dtype=np.uint8)
+        n = len(data)
+        if n == 0:
+            continue
+        bounds, hard = _doc_row_bounds(n, _find_safe_splits(data), K)
+        if hard:
+            hard_cut.add(d_i)
+        starts, ends = bounds[:-1], bounds[1:]
+        padded = np.concatenate([data, np.zeros(K + LOOK, np.uint8)])
+        all_rows.append(padded[starts[:, None] + np.arange(K + LOOK, dtype=np.int64)[None, :]])
+        all_payload.append((ends - starts).astype(np.int32))
+        all_total.append((np.minimum(ends + LOOK, n) - starts).astype(np.int32))
+        all_doc.append(np.full(len(starts), d_i, dtype=np.int32))
+    if not all_rows:
+        z = np.zeros(0, dtype=np.int32)
+        return PackedBatch(rows=np.zeros((0, K + LOOK), dtype=np.uint8), n_payload=z,
+                           n_total=z, doc_index=z, hard_cut_docs=frozenset(), row_capacity=K)
+    return PackedBatch(
+        rows=np.concatenate(all_rows), n_payload=np.concatenate(all_payload),
+        n_total=np.concatenate(all_total), doc_index=np.concatenate(all_doc),
+        hard_cut_docs=frozenset(hard_cut), row_capacity=K,
+    )
 
 
 def host_tables(pat_str: str, mergeable_ranks: dict[bytes, int]):
@@ -121,18 +227,21 @@ def _vocab_readiness(mergeable_ranks: dict[bytes, int], pt: PairTable,
 
 class TorchEngine:
     """The tables of one (pat_str, vocabulary) on one device, and the v3
-    corpus encoder over them."""
+    and v2 corpus encoders over them."""
 
-    def __init__(self, tables: ChunkTables, vocab_report: dict | None = None):
+    def __init__(self, tables: ChunkTables, vocab_report: dict | None = None,
+                 pat_str: str | None = None):
         self.tables = tables
         self.device = tables.device
         self.vocab_report = vocab_report
-        self.stats = {"rows": 0, "chunks": 0, "worst_case_chunks": 0, "fallback_docs": 0}
-        # host-clock seconds of the last encode_corpus3 call, by phase:
-        # pack (host row cuts), enqueue (chunk inputs + uploads + launches),
-        # fetch (header/token read-back, which waits for the device, and
-        # worst-case re-runs), assemble (per-document stitching), fallback
-        # (host encoding of flagged documents)
+        self.pat_str = pat_str  # compiles the byte-level scan table on demand
+        self.stats = {"rows": 0, "chunks": 0, "worst_case_chunks": 0, "fallback_docs": 0,
+                      "v1_fallback_chunks": 0}
+        # host-clock seconds of the last corpus call, by phase: pack (host
+        # row cuts), enqueue (chunk inputs + uploads + launches), fetch
+        # (header/token read-back, which waits for the device, and the
+        # worst-case or v1 re-runs), assemble (per-document stitching),
+        # fallback (host encoding of flagged documents)
         self.timing: dict[str, float] = {}
 
     @staticmethod
@@ -140,7 +249,19 @@ class TorchEngine:
         dev = resolve_device(device)
         char, pair, vocab, long = host_tables(pat_str, mergeable_ranks)
         report = _vocab_readiness(mergeable_ranks, pair, vocab, long)
-        return TorchEngine(upload_tables(char, pair, vocab, long, dev), report)
+        return TorchEngine(upload_tables(char, pair, vocab, long, dev), report, pat_str)
+
+    def byte_tables(self) -> ChunkTables:
+        """The tables with the byte-level scan table of the v2/v1
+        programs, compiled from the pattern and uploaded at the first
+        call."""
+        if self.tables.byte_scan is None:
+            if self.pat_str is None:
+                raise ValueError("the engine has neither a byte-level scan table nor a "
+                                 "pattern to compile one from")
+            table = byte_scan_table(compile_pattern(self.pat_str))
+            self.tables.byte_scan = torch.as_tensor(table, device=self.device)
+        return self.tables
 
     def upload(self, arrays) -> list[torch.Tensor]:
         """numpy chunk inputs -> tensors on the engine's device (pinned
@@ -154,10 +275,10 @@ class TorchEngine:
         return out
 
     def _run_chunks(self, pc, chunk_rows: int):
-        """Run every chunk; returns [(header, tokens, n_real_rows, first
-        row)] and the chunk row count C. Slot 0 of each chunk is a ghost of
-        the previous chunk's last row: it re-provides its handoff boundary
-        and emits nothing."""
+        """Run every chunk; returns [(tokens, row_counts, row_bad, n_real_rows,
+        first row)] per chunk. Slot 0 of each chunk is a ghost of the
+        previous chunk's last row: it re-provides its handoff boundary and
+        emits nothing."""
         B = pc.row_off.shape[0]
         K = pc.K
         KP, KL = row_geometry(K)
@@ -186,42 +307,27 @@ class TorchEngine:
                     raise RuntimeError(f"worst-case chunk program overflowed at row {lo}")
                 self.stats["worst_case_chunks"] += 1
             toks = tok[: int(h[-2])].cpu().numpy().view(np.uint32)
-            results.append((h, toks, nreal, lo))
+            results.append((toks, h[:C][1 : nreal + 1].astype(np.int64),
+                            h[C : 2 * C][1 : nreal + 1].astype(bool), nreal, lo))
         self.timing["fetch_s"] = time.perf_counter() - t1
         self.stats["chunks"] += len(pending)
-        return results, C
+        return results
 
-    def encode_corpus3(self, texts: Sequence[str] | Sequence[bytes], host_fallback=None,
-                       K: int | None = None, chunk_rows: int | None = None,
-                       as_numpy: bool = False):
-        """Encode documents on the engine's device, byte-exact with the
-        host ``encode_ordinary``. ``as_numpy=True`` returns per-document
-        uint32 arrays instead of lists of ints."""
-        if K and K > MAX_K:
-            raise ValueError(f"row_capacity={K} exceeds the device maximum {MAX_K}")
-        K = K or K_DEFAULT
-        docs = [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in texts]
+    def _assemble(self, docs: list[bytes], doc_index: np.ndarray, results,
+                  fallback_docs: set[int], host_fallback, as_numpy: bool) -> list:
+        """Stitch the per-chunk token streams ((tokens, row_counts, row_bad,
+        n, first row) per chunk) back into documents. A document with a bad
+        row, or in ``fallback_docs``, is encoded by ``host_fallback``."""
         out: list = [np.empty(0, np.uint32) if as_numpy else [] for _ in docs]
         t0 = time.perf_counter()
-        pc = pack_corpus3(docs, K)
-        self.timing = {"pack_s": time.perf_counter() - t0}
-        B = pc.row_off.shape[0]
-        if B == 0:
-            return out
-        results, C = self._run_chunks(pc, chunk_rows or DEFAULT_CHUNK_ROWS)
-
-        t0 = time.perf_counter()
         frags: dict[int, list[np.ndarray]] = {}
-        fallback_docs: set[int] = set()
-        for hdr, toks, nreal, lo in results:
-            counts = hdr[:C][1 : nreal + 1].astype(np.int64)
-            bad = hdr[C : 2 * C][1 : nreal + 1].astype(bool)
-            d = pc.doc_index[lo : lo + nreal]
+        for toks, counts, bad, n, lo in results:
+            d = doc_index[lo : lo + n]
             fallback_docs.update(int(x) for x in np.unique(d[bad]))
             offs = np.concatenate([[0], np.cumsum(counts)])
             changes = np.nonzero(np.diff(d))[0] + 1
             fr_start = np.concatenate([[0], changes])
-            fr_end = np.concatenate([changes, [nreal]])
+            fr_end = np.concatenate([changes, [n]])
             for a, b in zip(fr_start, fr_end):
                 frags.setdefault(int(d[a]), []).append(toks[offs[a] : offs[b]])
         for doc, parts in frags.items():
@@ -229,7 +335,7 @@ class TorchEngine:
                 continue
             arr = parts[0] if len(parts) == 1 else np.concatenate(parts)
             out[doc] = arr if as_numpy else arr.tolist()
-        self.stats["rows"] += B
+        self.stats["rows"] += len(doc_index)
         t1 = time.perf_counter()
         self.timing["assemble_s"] = t1 - t0
         if fallback_docs:
@@ -243,3 +349,121 @@ class TorchEngine:
                 out[d_i] = np.asarray(toks, dtype=np.uint32) if as_numpy else toks
         self.timing["fallback_s"] = time.perf_counter() - t1
         return out
+
+    def encode_corpus3(self, texts: Sequence[str] | Sequence[bytes], host_fallback=None,
+                       K: int | None = None, chunk_rows: int | None = None,
+                       as_numpy: bool = False):
+        """Encode documents on the engine's device, byte-exact with the
+        host ``encode_ordinary``. ``as_numpy=True`` returns per-document
+        uint32 arrays instead of lists of ints."""
+        if K and K > MAX_K:
+            # the caller asked for a geometry: cap it loudly, as JAX does
+            warnings.warn(f"row_capacity={K} capped to {MAX_K} on the device pipeline "
+                          "(scan cost grows with row length)", stacklevel=3)
+        K = min(K or K_DEFAULT, MAX_K)
+        docs = [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in texts]
+        t0 = time.perf_counter()
+        pc = pack_corpus3(docs, K)
+        self.timing = {"pack_s": time.perf_counter() - t0}
+        if pc.row_off.shape[0] == 0:
+            return [np.empty(0, np.uint32) if as_numpy else [] for _ in docs]
+        results = self._run_chunks(pc, chunk_rows or DEFAULT_CHUNK_ROWS)
+        return self._assemble(docs, pc.doc_index, results, set(), host_fallback, as_numpy)
+
+    # -- v2 (byte-level sequential scanner) and its v1 re-run -----------------
+
+    def _chunk(self, batch: PackedBatch, lo: int, C: int):
+        """Rows [lo, lo+C) of the batch, zero-padded to C, on the device;
+        returns (rows, n_payload, n_total, n_real)."""
+        rows = batch.rows[lo : lo + C]
+        pay = batch.n_payload[lo : lo + C]
+        tot = batch.n_total[lo : lo + C]
+        n = rows.shape[0]
+        if n < C:
+            rows = np.concatenate([rows, np.zeros((C - n, rows.shape[1]), np.uint8)])
+            pay = np.concatenate([pay, np.zeros(C - n, np.int32)])
+            tot = np.concatenate([tot, np.zeros(C - n, np.int32)])
+        return (*self.upload([rows, pay, tot]), n)
+
+    def encode_rows(self, batch: PackedBatch, chunk_rows: int = DEFAULT_CHUNK_ROWS):
+        """The v1 program over every row: (packed [B, K] uint32, counts [B]
+        int32, row_bad [B] bool) as numpy arrays."""
+        B, KL = batch.rows.shape
+        K = KL - LOOK
+        if B == 0:
+            return np.zeros((0, K), np.uint32), np.zeros(0, np.int32), np.zeros(0, bool)
+        t = self.byte_tables()
+        C = quantize_chunk_rows(B, chunk_rows)
+        outs = []
+        for lo in range(0, B, C):
+            rows, pay, tot, n = self._chunk(batch, lo, C)
+            packed, counts, _rounds, bad = run_rows1(t, rows, pay, tot)
+            outs.append((packed, counts, bad, n))
+        packed = np.concatenate([o[0][: o[3]].cpu().numpy().view(np.uint32) for o in outs])
+        counts = np.concatenate([o[1][: o[3]].cpu().numpy() for o in outs])
+        row_bad = np.concatenate([o[2][: o[3]].cpu().numpy() for o in outs])
+        return packed, counts, row_bad
+
+    def _resolve_chunks(self, batch: PackedBatch, chunk_rows: int):
+        """Run the v2 program on every chunk, then yield (tokens uint32,
+        row_counts [n], row_bad [n], n, lo) per chunk; a chunk whose caps
+        overflowed is re-run through the v1 program."""
+        B = batch.rows.shape[0]
+        t = self.byte_tables()
+        C = quantize_chunk_rows(B, chunk_rows)
+        t0 = time.perf_counter()
+        pending = []
+        for lo in range(0, B, C):
+            rows, pay, tot, n = self._chunk(batch, lo, C)
+            pending.append((*run_chunk2(t, rows, pay, tot), n, lo))
+        t1 = time.perf_counter()
+        self.timing["enqueue_s"] = t1 - t0
+        results = []
+        for flat, hdr, n, lo in pending:
+            h = hdr.cpu().numpy()
+            if h[-1]:
+                self.stats["v1_fallback_chunks"] += 1
+                sub = PackedBatch(
+                    rows=batch.rows[lo : lo + n], n_payload=batch.n_payload[lo : lo + n],
+                    n_total=batch.n_total[lo : lo + n], doc_index=batch.doc_index[lo : lo + n],
+                    hard_cut_docs=frozenset(), row_capacity=batch.row_capacity,
+                )
+                packed, counts, bad = self.encode_rows(sub, chunk_rows)
+                keep = np.arange(packed.shape[1])[None, :] < counts[:, None]
+                results.append((packed[keep], counts.astype(np.int64), bad, n, lo))
+                continue
+            toks = flat[: int(h[-2])].cpu().numpy().view(np.uint32)
+            results.append((toks, h[:n].astype(np.int64), h[C : C + n].astype(bool), n, lo))
+        self.timing["fetch_s"] = time.perf_counter() - t1
+        self.stats["chunks"] += len(pending)
+        return results
+
+    def encode_rows_tokens(self, batch: PackedBatch, chunk_rows: int = DEFAULT_CHUNK_ROWS):
+        """The v2 path row by row: (row_tokens, one uint32 array per row;
+        row_bad [B] bool)."""
+        if batch.rows.shape[0] == 0:
+            return [], np.zeros(0, bool)
+        row_tokens: list[np.ndarray] = []
+        row_bad = []
+        for toks, counts, bad, _n, _lo in self._resolve_chunks(batch, chunk_rows):
+            offs = np.concatenate([[0], np.cumsum(counts)])
+            row_tokens.extend(toks[offs[r] : offs[r + 1]] for r in range(len(counts)))
+            row_bad.append(bad)
+        return row_tokens, np.concatenate(row_bad)
+
+    def encode_corpus(self, texts: Sequence[str] | Sequence[bytes], host_fallback=None,
+                      row_capacity: int = DEFAULT_ROW, chunk_rows: int | None = None,
+                      as_numpy: bool = False):
+        """Encode documents on the engine's device through the v2 program
+        with the byte-level scanner (v1 for overflowing chunks), byte-exact
+        with the host ``encode_ordinary``. ``as_numpy=True`` returns
+        per-document uint32 arrays instead of lists of ints."""
+        docs = [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in texts]
+        t0 = time.perf_counter()
+        batch = pack_documents(docs, row_capacity)
+        self.timing = {"pack_s": time.perf_counter() - t0}
+        if batch.rows.shape[0] == 0:
+            return [np.empty(0, np.uint32) if as_numpy else [] for _ in docs]
+        results = self._resolve_chunks(batch, chunk_rows or DEFAULT_CHUNK_ROWS)
+        return self._assemble(docs, batch.doc_index, results, set(batch.hard_cut_docs),
+                              host_fallback, as_numpy)

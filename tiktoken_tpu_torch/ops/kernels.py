@@ -1,15 +1,20 @@
 """The port's hand-written CUDA kernels: build, binding, wrappers, counts.
 
-Four kernels carry the v3 chunk program on Hopper (sources in
-``tiktoken_tpu_torch/csrc``, each with a note on what it replaces, what
+Six kernels carry the v3, v2 and v1 chunk programs on Hopper (sources
+in ``tiktoken_tpu_torch/csrc``, each with a note on what it replaces, what
 bounds it and how its design answers that):
 
 - ``scan_rows``: row gather, char classes and the handshake DFA scan
   (entry ``scan_rows``), and the handshake validation (``scan_validate``);
-- ``compaction``: the piece catalog, flat and row-wise stable compaction,
-  monotone routing and the expansion into the token stream;
+- ``compaction``: the v3 and v2 piece catalogs, flat and row-wise stable
+  compaction, slot extraction, monotone routing and the expansion into
+  the token stream (with per-row counts for v2);
 - ``vocab_hit``: whole-piece vocabulary hits, short and long tables;
-- ``slot_merge``: greedy BPE in 16- and 64-byte slots.
+- ``slot_merge``: greedy BPE in 16- and 64-byte slots;
+- ``byte_scan``: the byte-level scanners, the v2 sequential scan
+  (``seq_scan``), the v1 window scan (``window_scan``) and orbit
+  (``orbit``);
+- ``grid_merge``: the v1 full-grid greedy BPE and row packing.
 
 Each source is compiled at first use by its own ``nvcc`` process (all
 started together) into a shared library with a plain C interface, under
@@ -17,7 +22,7 @@ started together) into a shared library with a plain C interface, under
 checks device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches on the current CUDA stream, raises if the entry
 point returns a CUDA error, and adds one to its kernel's count in
-``launches``. A wrapper runs the plain PyTorch version only when its
+``launches`` (and to its entry point's in ``entry_launches``). A wrapper runs the plain PyTorch version only when its
 tensors lie on the CPU; a CUDA tensor always goes to the kernel.
 """
 
@@ -34,12 +39,12 @@ from types import SimpleNamespace
 
 import torch
 
-from tiktoken_tpu_torch.ops import compaction, pieces, slot_merge as slot_merge_mod
-from tiktoken_tpu_torch.ops import sweep_scan
+from tiktoken_tpu_torch.ops import compaction, merge, pieces, slot_merge as slot_merge_mod
+from tiktoken_tpu_torch.ops import sweep_scan, window_scan as window_scan_mod
 from tiktoken_tpu_torch.ops.charclass import na_cap
 from tiktoken_tpu_torch.ops.sweep_scan import ScanTables
 
-KERNELS = ("scan_rows", "compaction", "vocab_hit", "slot_merge")
+KERNELS = ("scan_rows", "compaction", "vocab_hit", "slot_merge", "byte_scan", "grid_merge")
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -47,11 +52,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 # kernel launches since the last reset_launches(), by kernel
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the same, by C entry point (e.g. "tt_window_scan")
+entry_launches: dict[str, int] = {}
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         launches[k] = 0
+    entry_launches.clear()
 
 
 _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
@@ -67,6 +75,10 @@ _SIGNATURES = {
         "tt_compact_rows": [_P, _P, _I, _I, _P, _P, _P],
         "tt_route": [_P, _P, _I, _I, _P, _P],
         "tt_expand_tokens": [_P, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _P, _P, _P],
+        "tt_catalog2": [_P, _I, _I, _P, _P, _I, _P, _LL, _P, _P, _P, _P, _P, _P, _P],
+        "tt_extract_slots": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
+        "tt_expand_tokens_rows": [_P, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _I, _I, _P, _P, _P,
+                                  _P, _P],
         "tt_tiles": [_LL],
     },
     "vocab_hit": {
@@ -75,6 +87,14 @@ _SIGNATURES = {
     },
     "slot_merge": {
         "tt_slot_merge": [_I, _P, _I, _U, _P, _P, _P, _I, _P, _P, _P],
+    },
+    "byte_scan": {
+        "tt_seq_scan": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+        "tt_window_scan": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _LL, _P, _P, _P, _P],
+        "tt_orbit": [_P, _P, _P, _I, _I, _P, _P, _P],
+    },
+    "grid_merge": {
+        "tt_grid_merge": [_P, _I, _U, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
     },
 }
 
@@ -148,6 +168,7 @@ def _call(kernel: str, fn: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel}.{fn} failed with CUDA error {err}")
     launches[kernel] += 1
+    entry_launches[fn] = entry_launches.get(fn, 0) + 1
 
 
 def _stream(device: torch.device) -> int:
@@ -410,13 +431,168 @@ def slot_merge(buckets, byte_to_rank, slot_bytes, lens, seed: int):
     return tok, alive
 
 
-# The chunk program's two sets of operations: the kernels (plain versions
+def catalog2(piece_start, n_payload, rows, row_bad, p_cap: int):
+    """B10 catalog -> (starts [p_cap] i32, words [p_cap, 4] i32, lens
+    [p_cap] i32, row_bad [C] bool, n_pieces i32); see
+    ``compaction.catalog2``."""
+    if _on_cpu(piece_start):
+        return compaction.catalog2(piece_start, n_payload, rows, row_bad, p_cap)
+    dev = _dev(piece_start)
+    C, K = piece_start.shape
+    KL = rows.shape[1]
+    if KL < K:
+        raise ValueError(f"rows must hold at least K={K} columns, got {KL}")
+    args = [_check("piece_start", piece_start, torch.bool, (C, K), dev), C, K,
+            _check("n_payload", n_payload, torch.int32, (C,), dev),
+            _check("rows", rows, torch.uint8, (C, KL), dev), KL,
+            _check("row_bad", row_bad, torch.bool, (C,), dev), p_cap]
+    starts = torch.empty(p_cap, dtype=torch.int32, device=dev)
+    words = torch.empty((p_cap, 4), dtype=torch.int32, device=dev)
+    lens = torch.empty(p_cap, dtype=torch.int32, device=dev)
+    bad = torch.empty(C, dtype=torch.bool, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = _tile_scratch(C * K, dev)
+    _call("compaction", "tt_catalog2", *args, starts.data_ptr(), words.data_ptr(),
+          lens.data_ptr(), bad.data_ptr(), count.data_ptr(), scratch.data_ptr(), _stream(dev))
+    return starts, words, lens, bad, count
+
+
+def extract_slots(rows, starts, lens, K: int):
+    """B10 long extraction -> [n, 64] u8; see ``compaction.extract_slots``."""
+    if _on_cpu(rows):
+        return compaction.extract_slots(rows, starts, lens, K)
+    dev = _dev(rows)
+    C, KL = rows.shape
+    (n,) = starts.shape
+    width = pieces.LONG_SLOT
+    args = [_check("rows", rows, torch.uint8, (C, KL), dev), C, KL, K,
+            _check("starts", starts, torch.int32, (n,), dev),
+            _check("lens", lens, torch.int32, (n,), dev), n, width]
+    out = torch.empty((n, width), dtype=torch.uint8, device=dev)
+    _call("compaction", "tt_extract_slots", *args, out.data_ptr(), _stream(dev))
+    return out
+
+
+def expand_tokens_rows(counts, combo, m_tok, l_tok, out_size: int, starts, K: int,
+                       n_rows: int):
+    """B10 assembly -> (tokens [out_size] i32, total i32, row_counts
+    [n_rows] i32); see ``compaction.expand_tokens_rows``."""
+    if _on_cpu(counts):
+        return compaction.expand_tokens_rows(counts, combo, m_tok, l_tok, out_size, starts, K,
+                                             n_rows)
+    dev = _dev(counts)
+    (n,) = counts.shape
+    args = [_check("counts", counts, torch.int32, (n,), dev),
+            _check("combo", combo, torch.int32, (n,), dev), n,
+            _check("m_tok", m_tok, torch.int32, None, dev), m_tok.numel(),
+            _check("l_tok", l_tok, torch.int32, None, dev), l_tok.numel(), out_size,
+            _check("starts", starts, torch.int32, (n,), dev), K, n_rows]
+    tok = torch.empty(out_size, dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    row_counts = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    scratch = _tile_scratch(n, dev)
+    _call("compaction", "tt_expand_tokens_rows", *args, tok.data_ptr(), total.data_ptr(),
+          row_counts.data_ptr(), scratch.data_ptr(), _stream(dev))
+    return tok, total, row_counts
+
+
+# ---------------------------------------------------------------------------
+# byte_scan
+# ---------------------------------------------------------------------------
+
+
+def seq_scan(packed, rows, n_payload, n_total, *, K: int):
+    """B9 -> (piece_start [C, K] bool, row_bad [C] bool); see
+    ``window_scan.seq_scan``."""
+    if _on_cpu(rows):
+        return window_scan_mod.seq_scan(packed, rows, n_payload, n_total, K=K)
+    dev = _dev(rows)
+    C, KL = rows.shape
+    S_, NC = packed.shape
+    args = [_check("packed", packed, torch.int32, (S_, NC), dev), S_, NC,
+            _check("rows", rows, torch.uint8, (C, KL), dev), C, KL, K,
+            _check("n_payload", n_payload, torch.int32, (C,), dev),
+            _check("n_total", n_total, torch.int32, (C,), dev)]
+    mask = torch.empty((C, K), dtype=torch.bool, device=dev)
+    bad = torch.empty(C, dtype=torch.bool, device=dev)
+    _call("byte_scan", "tt_seq_scan", *args, mask.data_ptr(), bad.data_ptr(), _stream(dev))
+    return mask, bad
+
+
+def window_scan(packed, rows, n_total, *, K: int, window: int = window_scan_mod.DEFAULT_WINDOW):
+    """B11 -> (hop [C, K] i32, unresolved [C, K] bool); see
+    ``window_scan.window_scan``."""
+    if _on_cpu(rows):
+        return window_scan_mod.window_scan(packed, rows, n_total, K=K, window=window)
+    dev = _dev(rows)
+    C, KL = rows.shape
+    S_, NC = packed.shape
+    w1 = min(window_scan_mod.FIRST_WINDOW, window)
+    u_cap = max(128, C * K // 32) if w1 < window else C * K
+    args = [_check("packed", packed, torch.int32, (S_, NC), dev), S_, NC,
+            _check("rows", rows, torch.uint8, (C, KL), dev), KL,
+            _check("n_total", n_total, torch.int32, (C,), dev), C, K, window, w1, u_cap]
+    hop = torch.empty((C, K), dtype=torch.int32, device=dev)
+    unresolved = torch.empty((C, K), dtype=torch.bool, device=dev)
+    counter = torch.empty((), dtype=torch.int64, device=dev)
+    _call("byte_scan", "tt_window_scan", *args, hop.data_ptr(), unresolved.data_ptr(),
+          counter.data_ptr(), _stream(dev))
+    return hop, unresolved
+
+
+def orbit(hop, unresolved, valid_len):
+    """B12 -> (piece_start [C, K] bool, row_bad [C] bool); see
+    ``window_scan.orbit``."""
+    if _on_cpu(hop):
+        return window_scan_mod.orbit(hop, unresolved, valid_len)
+    dev = _dev(hop)
+    C, K = hop.shape
+    args = [_check("hop", hop, torch.int32, (C, K), dev),
+            _check("unresolved", unresolved, torch.bool, (C, K), dev),
+            _check("valid_len", valid_len, torch.int32, (C,), dev), C, K]
+    mask = torch.empty((C, K), dtype=torch.bool, device=dev)
+    bad = torch.empty(C, dtype=torch.bool, device=dev)
+    _call("byte_scan", "tt_orbit", *args, mask.data_ptr(), bad.data_ptr(), _stream(dev))
+    return mask, bad
+
+
+# ---------------------------------------------------------------------------
+# grid_merge
+# ---------------------------------------------------------------------------
+
+def grid_merge(buckets, byte_to_rank, rows, piece_start, n_payload, seed: int):
+    """B13 + B14 -> (packed [C, K] i32, counts [C] i32, rounds i32); see
+    ``merge.grid_merge``."""
+    if _on_cpu(rows):
+        return merge.grid_merge(buckets, byte_to_rank, rows, piece_start, n_payload, seed)
+    dev = _dev(rows)
+    C, K = piece_start.shape
+    KL = rows.shape[1]
+    nb = buckets.shape[0]
+    if buckets.data_ptr() % 16:
+        raise ValueError("pair buckets must be 16-byte aligned")
+    args = [_check("buckets", buckets, torch.int32, (nb, 32), dev), nb, seed,
+            _check("byte_to_rank", byte_to_rank, torch.int32, (256,), dev),
+            _check("rows", rows, torch.uint8, (C, KL), dev), KL,
+            _check("piece_start", piece_start, torch.bool, (C, K), dev),
+            _check("n_payload", n_payload, torch.int32, (C,), dev), C, K]
+    packed = torch.empty((C, K), dtype=torch.int32, device=dev)
+    counts = torch.empty(C, dtype=torch.int32, device=dev)
+    rounds = torch.empty((), dtype=torch.int32, device=dev)
+    _call("grid_merge", "tt_grid_merge", *args, packed.data_ptr(), counts.data_ptr(),
+          rounds.data_ptr(), _stream(dev))
+    return packed, counts, rounds
+
+
+# The chunk programs' two sets of operations: the kernels (plain versions
 # on CPU tensors), and the plain versions everywhere — the yardstick the
 # chip check holds each kernel against.
 KERNEL_OPS = SimpleNamespace(
     scan_rows=scan_rows, scan_validate=scan_validate, catalog=catalog, compact=compact,
     compact_rows=compact_rows, route_right=route_right, expand_tokens=expand_tokens,
     vocab_hit=vocab_hit, long_vocab_hit=long_vocab_hit, slot_merge=slot_merge,
+    catalog2=catalog2, extract_slots=extract_slots, expand_tokens_rows=expand_tokens_rows,
+    seq_scan=seq_scan, window_scan=window_scan, orbit=orbit, grid_merge=grid_merge,
 )
 PLAIN_OPS = SimpleNamespace(
     scan_rows=sweep_scan.scan_rows, scan_validate=sweep_scan.scan_validate,
@@ -424,4 +600,8 @@ PLAIN_OPS = SimpleNamespace(
     compact_rows=compaction.compact_rows, route_right=compaction.route_right,
     expand_tokens=compaction.expand_tokens, vocab_hit=pieces.vocab_hit,
     long_vocab_hit=pieces.long_vocab_hit, slot_merge=slot_merge_mod.slot_merge,
+    catalog2=compaction.catalog2, extract_slots=compaction.extract_slots,
+    expand_tokens_rows=compaction.expand_tokens_rows, seq_scan=window_scan_mod.seq_scan,
+    window_scan=window_scan_mod.window_scan, orbit=window_scan_mod.orbit,
+    grid_merge=merge.grid_merge,
 )

@@ -257,3 +257,77 @@ def long_vocab_hit(buckets: torch.Tensor, slot_bytes: torch.Tensor,
     and the bytes are a vocabulary token)."""
     words = slot_bytes.contiguous().view(torch.int32)  # [M, 16] little-endian
     return _probe(buckets, words, lens, seed, LONG_BUCKET_SLOTS, SLOT)
+
+
+# ---------------------------------------------------------------------------
+# the v2 piece catalog and slot extraction (part of B10; the kernel is the
+# ``compaction`` entry tt_catalog2)
+# ---------------------------------------------------------------------------
+
+
+def catalog_numpy(piece_start: np.ndarray, n_payload: np.ndarray, p_cap: int):
+    """(starts [p_cap], lens [p_cap], n_pieces). Positions are flat indices
+    into the [B, K] grid; padding entries have start B*K and len 0."""
+    B, K = piece_start.shape
+    starts_list = []
+    lens_list = []
+    for b in range(B):
+        row_starts = np.nonzero(piece_start[b])[0]
+        for i, s in enumerate(row_starts):
+            e = row_starts[i + 1] if i + 1 < len(row_starts) else n_payload[b]
+            starts_list.append(b * K + s)
+            lens_list.append(int(e) - int(s))
+    n = len(starts_list)
+    starts = np.full(p_cap, B * K, dtype=np.int32)
+    lens = np.zeros(p_cap, dtype=np.int32)
+    starts[:n] = starts_list[:p_cap]
+    lens[:n] = lens_list[:p_cap]
+    return starts, lens, n
+
+
+def extract_numpy(rows: np.ndarray, starts: np.ndarray, lens: np.ndarray):
+    """slots [p_cap, 4] uint32 little-endian, zero-padded past len."""
+    flat = rows.reshape(-1)
+    out = np.zeros((len(starts), SLOT), dtype=np.uint8)
+    N = len(flat)
+    for p, (s, l) in enumerate(zip(starts, lens)):
+        l = min(int(l), SLOT)
+        if l > 0 and s < N:
+            out[p, :l] = flat[s : s + l]
+    return out.view(np.uint32).reshape(len(starts), 4)
+
+
+def catalog(piece_start: torch.Tensor, n_payload: torch.Tensor, p_cap: int):
+    """(piece_start [B, K] bool, n_payload [B] i32) -> (starts [p_cap] i32
+    flat indices into the grid, B*K past the count; lens [p_cap] i32, to
+    the next start capped at the row's payload end, 0 past the count;
+    n_pieces i32 scalar, not clamped)."""
+    B, K = piece_start.shape
+    N = B * K
+    dev = piece_start.device
+    flat = piece_start.reshape(-1)
+    vi = flat.to(torch.int64)
+    pid = torch.cumsum(vi, 0) - vi
+    n_pieces = vi.sum().to(torch.int32)
+    tgt = torch.where(flat & (pid < p_cap), pid, p_cap)
+    starts = torch.full((p_cap + 1,), N, dtype=torch.int32, device=dev)
+    starts.scatter_(0, tgt, torch.where(flat, torch.arange(N, dtype=torch.int32, device=dev), N))
+    starts = starts[:p_cap]
+    next_start = torch.cat([starts[1:], starts.new_full((1,), N)])
+    row = (starts // K).clamp(max=B - 1)
+    row_end = row * K + n_payload[row.to(torch.int64)]
+    ends = torch.minimum(torch.where(next_start > starts, next_start, N), row_end)
+    lens = torch.where(starts >= N, 0, (ends - starts).clamp(min=0)).to(torch.int32)
+    return starts, lens, n_pieces
+
+
+def extract(rows: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """(rows [B, K] u8, starts, lens [P] i32) -> words [P, 4] i32: each
+    piece's first 16 bytes from the flat grid, little-endian, zero past
+    min(len, 16) and past the grid."""
+    flat = rows.reshape(-1)
+    b = torch.arange(SLOT, device=rows.device)[None, :]
+    idx = starts.to(torch.int64)[:, None] + b
+    keep = (idx < flat.numel()) & (b < lens.clamp(0, SLOT)[:, None])
+    byts = torch.where(keep, flat[idx.clamp(max=flat.numel() - 1)], 0).to(torch.uint8)
+    return byts.contiguous().view(torch.int32)

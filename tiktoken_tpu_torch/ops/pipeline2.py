@@ -1,0 +1,147 @@
+"""The v2 chunk program on the GPU: safe-split rows, byte-level scan,
+piece slots; and the v1 program, its re-run for a chunk whose caps
+overflow.
+
+v2 (``run_chunk2``), the counterpart of the JAX ``build_pipeline2_fn``
+with the byte-level sequential scanner (no char tables) and without
+``pack24``, stage for stage:
+
+    rows [C, KL] -- seq_scan --> piece_start [C, K], row_bad
+        -- catalog2 --> starts / lens / words per piece (row-major order)
+        -- vocab hits --> single-token pieces
+        -- short misses: compact, slot merge (W=16), row compaction
+        -- long pieces: compact, extract, long hits, slot merge (W=64)
+        -- expand_tokens_rows --> flat token stream + per-row counts
+
+    header [2C+2] i32 = [row_counts | row_bad | n_tokens | overflow]
+
+with the JAX caps p_cap = max(256, N//2), m_cap = max(256, N//16), l_cap =
+max(64, N//512), t_cap = max(512, N//2) rounded up to a multiple of 4 (N =
+C*K), and its overflow rule: n_pieces > p_cap-1, n_miss > m_cap, n_long >
+l_cap or n_tokens > t_cap-1. A row with a piece longer than LONG_SLOT is
+flagged bad. Tokens come back as int32 bit patterns (no 24-bit packing).
+
+v1 (``run_rows1``), the counterpart of the JAX ``build_pipeline_fn``:
+window scan, orbit, ``row_bad``, full-grid merge and row packing.
+
+Glue that stays PyTorch ops on the device: the kind masks
+(``is_short_miss``, ``is_long``, ``m_real``, ``l_real``), the
+single_tok/combo/count selects (with the long hits' lane-0 select) and
+the header concat. The scans read the row bytes and the merge the
+payload lengths directly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tiktoken_tpu_torch.ops.kernels import KERNEL_OPS
+from tiktoken_tpu_torch.ops.pieces import LONG_SLOT, SLOT
+from tiktoken_tpu_torch.ops.window_scan import DEFAULT_WINDOW
+
+LOOK = 16  # true continuation bytes per row
+DEFAULT_ROW = 256  # payload bytes per row
+
+
+def chunk_caps2(K: int, C: int) -> dict[str, int]:
+    """The v2 chunk program's static caps (the JAX ``build_pipeline2_fn``'s)."""
+    N = C * K
+    return dict(p_cap=max(256, N // 2), m_cap=max(256, N // 16), l_cap=max(64, N // 512),
+                t_cap=-(-max(512, N // 2) // 4) * 4)
+
+
+def run_chunk2(t, rows, n_payload, n_total, *, ops=KERNEL_OPS):
+    """One v2 chunk: (rows [C, KL] u8, n_payload, n_total [C] i32) on one
+    device, with ``t`` the engine's tables (``ChunkTables`` with
+    ``byte_scan`` set) -> (flat_tok [t_cap] i32, header [2C+2] i32).
+    ``ops``: the kernels (``KERNEL_OPS``) or their plain versions
+    (``PLAIN_OPS``)."""
+    C, KL = rows.shape
+    K = KL - LOOK
+    caps = chunk_caps2(K, C)
+    p_cap, m_cap, l_cap, t_cap = caps["p_cap"], caps["m_cap"], caps["l_cap"], caps["t_cap"]
+    dev = rows.device
+
+    def ar(n):
+        return torch.arange(n, dtype=torch.int32, device=dev)
+
+    # ---- B9: sequential scan ---------------------------------------------------
+    piece_start, row_bad = ops.seq_scan(t.byte_scan, rows, n_payload, n_total, K=K)
+
+    # ---- B10: catalog, words, too-long rows ----------------------------------
+    starts, words, lens, row_bad, n_pieces = ops.catalog2(piece_start, n_payload, rows,
+                                                          row_bad, p_cap)
+
+    # ---- whole-piece hits ------------------------------------------------------
+    hit = ops.vocab_hit(t.vocab_buckets, words, torch.where(lens <= SLOT, lens, 0), t.vocab_seed)
+    miss = hit == -1  # MISS = 0xFFFFFFFF
+    piece_idx = ar(p_cap)
+
+    # ---- short misses ------------------------------------------------------------
+    is_short_miss = (lens >= 2) & (lens <= SLOT) & miss
+    (m_words, m_lens_c, m_pid), n_miss, mslot = ops.compact(
+        is_short_miss, [words, lens, piece_idx], m_cap)
+    m_real = ar(m_cap) < n_miss
+    m_lens = torch.where(m_real, m_lens_c, 0)
+    m_tok, m_alive = ops.slot_merge(t.pair_buckets, t.byte_to_rank, m_words.view(torch.uint8),
+                                    m_lens, t.pair_seed)
+    m_tok_p, m_counts = ops.compact_rows(m_alive & m_real[:, None], m_tok)
+
+    # ---- long pieces ---------------------------------------------------------------
+    is_long = (lens > SLOT) & (lens <= LONG_SLOT)
+    (l_starts, l_lens_c, l_pid), n_long, lslot = ops.compact(
+        is_long, [starts, lens, piece_idx], l_cap)
+    l_real = ar(l_cap) < n_long
+    l_lens = torch.where(l_real, l_lens_c, 0)
+    l_bytes = ops.extract_slots(rows, l_starts, l_lens, K)
+    # whole-piece hits of 17..64-byte tokens skip the merge (reference
+    # vocab-as-cache semantics, src/lib.rs:367-369)
+    l_hit = ops.long_vocab_hit(t.long_buckets, l_bytes, l_lens, t.long_seed)
+    l_is_hit = l_hit != -1
+    l_tok, l_alive = ops.slot_merge(
+        t.pair_buckets, t.byte_to_rank, l_bytes, torch.where(l_is_hit, 0, l_lens), t.pair_seed,
+    )
+    lane0 = (ar(LONG_SLOT) == 0)[None, :] & l_is_hit[:, None]
+    l_tok = torch.where(lane0, l_hit[:, None], l_tok)
+    l_tok_p, l_counts = ops.compact_rows((l_alive | lane0) & l_real[:, None], l_tok)
+
+    # ---- assembly: per-piece counts, the token stream, per-row counts --------------
+    first_byte = (words[:, 0] & 0xFF).to(torch.int64)
+    single_tok = torch.where(lens == 1, t.byte_to_rank[first_byte], hit)
+    is_single = (lens == 1) | ((lens >= 2) & (lens <= SLOT) & ~miss)
+    counts_m = ops.route_right(torch.where(m_real, m_pid, -1), m_counts, p_cap)
+    counts_l = ops.route_right(torch.where(l_real, l_pid, -1), l_counts, p_cap)
+    counts = torch.where(is_single, 1, torch.where(
+        is_short_miss, counts_m, torch.where(is_long, counts_l, 0))).to(torch.int32)
+    # unified token base: short-miss slot s -> s*16, long slot s -> m_cap*16
+    # + s*64; a single piece carries its id in-band, flagged by bit 31
+    base = torch.where(
+        is_short_miss, mslot.clamp(0, m_cap - 1) * SLOT,
+        torch.where(is_long, m_cap * SLOT + lslot.clamp(0, l_cap - 1) * LONG_SLOT, 0),
+    )
+    combo = torch.where(is_single, single_tok | -0x80000000, base).to(torch.int32)
+    flat_tok, n_tokens, row_counts = ops.expand_tokens_rows(counts, combo, m_tok_p, l_tok_p,
+                                                            t_cap, starts, K, C)
+
+    overflow = ((n_pieces > p_cap - 1) | (n_miss > m_cap) | (n_long > l_cap)
+                | (n_tokens > t_cap - 1))
+    header = torch.cat([
+        row_counts, row_bad.to(torch.int32),
+        torch.stack([n_tokens, overflow.to(torch.int32)]).to(torch.int32),
+    ])
+    return flat_tok, header
+
+
+def run_rows1(t, rows, n_payload, n_total, *, ops=KERNEL_OPS):
+    """The v1 program on one chunk: (rows [C, KL] u8, n_payload, n_total
+    [C] i32) -> (packed [C, K] i32, counts [C] i32, rounds i32, row_bad
+    [C] bool), K = KL - LOOK. Its caps cannot overflow; a row whose piece
+    starts include an unresolved or unmatched position is flagged bad."""
+    K = rows.shape[1] - LOOK
+    # window lookahead past the row reads EOF (only matches already dead
+    # by then can reach it)
+    hop, unresolved = ops.window_scan(t.byte_scan, rows, n_total, K=K, window=DEFAULT_WINDOW)
+    piece_start, row_bad = ops.orbit(hop, unresolved, n_payload)
+    packed, counts, rounds = ops.grid_merge(t.pair_buckets, t.byte_to_rank, rows, piece_start,
+                                            n_payload, t.pair_seed)
+    return packed, counts, rounds, row_bad

@@ -208,6 +208,9 @@ class ChunkTables:
     vocab_seed: int
     long_buckets: torch.Tensor  # [nb, 128] i32
     long_seed: int
+    # [S, 257] i32 byte-indexed scan table of the v2/v1 programs
+    # (window_scan.byte_scan_table); built at the first v2 call
+    byte_scan: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:

@@ -1,4 +1,4 @@
-"""Compile a split pattern (pat_str) into a char-level scanner DFA.
+"""Compile a split pattern (pat_str) into scanner DFAs (char and byte level).
 
 The reference pre-tokenizes with a backtracking regex engine over unicode
 text (reference: src/lib.rs:363-365, patterns in
@@ -27,10 +27,16 @@ Semantics preserved exactly:
   accept is tagged with a rewind of one char, so acceptance is a pure
   function of the state reached.
 
-Only the char-level automaton is ported: one transition per CHARACTER,
-over codepoint equivalence classes. The DFA is the single source of truth
-for both the host scanner (``scan_codepoints``) and the device scan
-kernel (csrc/scan_rows.cu).
+Two automata come out of the same parser and NFA builder:
+
+- the char-level one (``compile_pattern_chars``): one transition per
+  CHARACTER, over codepoint equivalence classes. It drives the host
+  scanner (``scan_codepoints``) and the v3 scan kernel
+  (csrc/scan_rows.cu);
+- the byte-level one (``compile_pattern``): one transition per UTF-8
+  BYTE, the lookahead's bytes consumed and rewound. It drives the v2/v1
+  scanners (``ops/window_scan.py``, csrc/byte_scan.cu) and the host
+  reference ``scan_bytes``.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import numpy as np
 
 from tiktoken_tpu_torch.ops import unicode_tables as ut
 
+EOF_SYMBOL = 256  # the byte-level automaton's end-of-text symbol
 MAX_REWIND = 15
 
 # ---------------------------------------------------------------------------
@@ -605,10 +612,12 @@ def compile_pattern_chars(pat_str: str, *, minimize: bool = True) -> CharScanner
     return minimize_char_dfa(dfa) if minimize else dfa
 
 
-def _tables_from_nfa(nfa: _Nfa, start: int, n_symbol_space: int):
+def _tables_from_nfa(nfa: _Nfa, start: int, n_symbol_space: int, extra_bounds=()):
     """Subset construction over an arbitrary symbol space. Returns
-    (trans [S, n_classes], accept [S], class_of_symbol [n_symbol_space])."""
-    bounds = {0, n_symbol_space}
+    (trans [S, n_classes], accept [S], class_of_symbol [n_symbol_space]).
+    ``extra_bounds`` forces class boundaries (the byte-level EOF symbol is
+    always its own class)."""
+    bounds = {0, n_symbol_space, *extra_bounds}
     for node in nfa.nodes:
         if node[0] == "byte":
             _, _, lo, hi = node
@@ -686,13 +695,23 @@ def _tables_from_nfa(nfa: _Nfa, start: int, n_symbol_space: int):
 
 
 def minimize_char_dfa(dfa: CharScannerDFA) -> CharScannerDFA:
+    """``_moore_minimize`` of a char-level automaton."""
+    new_trans, new_accept = _moore_minimize(dfa.trans, dfa.accept)
+    return CharScannerDFA(
+        trans=new_trans, accept=new_accept, edges=dfa.edges,
+        seg_class=dfa.seg_class, eof_class=dfa.eof_class,
+        n_states=new_trans.shape[0], n_classes=dfa.n_classes, pat_str=dfa.pat_str,
+    )
+
+
+def _moore_minimize(trans_in: np.ndarray, accept_in: np.ndarray):
     """Moore partition refinement. Valid because scanning semantics depend
     only on (transition, accept-rewind) observations; thread priorities are
     already folded into the tables. States 0 (dead) and 1 (start) keep
-    their identities."""
-    trans = dfa.trans.astype(np.int64)
-    accept = dfa.accept.astype(np.int64)
-    n = dfa.n_states
+    their identities. Returns (trans, accept) of the minimal automaton."""
+    trans = trans_in.astype(np.int64)
+    accept = accept_in.astype(np.int64)
+    n = trans.shape[0]
 
     # Initial blocks: by accept value, with the dead state forced alone.
     block = accept - accept.min() + 1
@@ -720,7 +739,7 @@ def minimize_char_dfa(dfa: CharScannerDFA) -> CharScannerDFA:
             nxt += 1
     new_ids = remap[block]
 
-    new_trans = np.zeros((n_blocks, dfa.n_classes), dtype=dfa.trans.dtype)
+    new_trans = np.zeros((n_blocks, trans.shape[1]), dtype=trans_in.dtype)
     new_accept = np.full(n_blocks, -1, dtype=np.int8)
     reps = np.zeros(n_blocks, dtype=np.int64)
     reps[new_ids] = np.arange(n)
@@ -728,11 +747,7 @@ def minimize_char_dfa(dfa: CharScannerDFA) -> CharScannerDFA:
         rep = reps[b]
         new_trans[b] = new_ids[trans[rep]]
         new_accept[b] = accept[rep]
-    return CharScannerDFA(
-        trans=new_trans, accept=new_accept, edges=dfa.edges,
-        seg_class=dfa.seg_class, eof_class=dfa.eof_class,
-        n_states=n_blocks, n_classes=dfa.n_classes, pat_str=dfa.pat_str,
-    )
+    return new_trans, new_accept
 
 
 def scan_codepoints(dfa: CharScannerDFA, text: str) -> list[int]:
@@ -766,3 +781,175 @@ def scan_codepoints(dfa: CharScannerDFA, text: str) -> list[int]:
             )
         i = last_end
     return starts
+
+
+# ---------------------------------------------------------------------------
+# Byte-level compilation: the scanner automaton over raw UTF-8 bytes, for
+# the v2 sequential scanner and the v1 window scan. Accept rewinds count
+# BYTES: the lookahead character's whole encoding (or the EOF symbol) is
+# consumed and rewound.
+# ---------------------------------------------------------------------------
+
+_CONT = (0x80, 0xBF)
+_LEN_BOUNDS = ((0x00, 0x7F), (0x80, 0x7FF), (0x800, 0xFFFF), (0x10000, 0x10FFFF))
+
+
+def _enc(cp: int) -> bytes:
+    return chr(cp).encode("utf-8")
+
+
+def _ranges_same_len(a: bytes, b: bytes) -> Iterable[tuple[tuple[int, int], ...]]:
+    """Byte-range sequences covering all same-length encodings in [a, b]."""
+    n = len(a)
+    if n == 1:
+        yield ((a[0], b[0]),)
+        return
+    if a[0] == b[0]:
+        for tail in _ranges_same_len(a[1:], b[1:]):
+            yield ((a[0], a[0]),) + tail
+        return
+    lo_suffix_min = bytes([0x80] * (n - 1))
+    lo_suffix_max = bytes([0xBF] * (n - 1))
+    start, end = a[0], b[0]
+    if a[1:] != lo_suffix_min:
+        for tail in _ranges_same_len(a[1:], lo_suffix_max):
+            yield ((a[0], a[0]),) + tail
+        start = a[0] + 1
+    top_separate = b[1:] != lo_suffix_max
+    mid_end = end - 1 if top_separate else end
+    if start <= mid_end:
+        yield ((start, mid_end),) + tuple(_CONT for _ in range(n - 1))
+    if top_separate:
+        for tail in _ranges_same_len(lo_suffix_min, b[1:]):
+            yield ((b[0], b[0]),) + tail
+
+
+def utf8_byte_sequences(cps: ut.IntervalSet) -> list[tuple[tuple[int, int], ...]]:
+    """Expand codepoint intervals to UTF-8 byte-range sequences (len 1-4)."""
+    out: list[tuple[tuple[int, int], ...]] = []
+    for lo, hi in cps:
+        for blo, bhi in _LEN_BOUNDS:
+            s, e = max(lo, blo), min(hi, bhi)
+            if s <= e:
+                out.extend(_ranges_same_len(_enc(s), _enc(e)))
+    return out
+
+
+def _frag_for_look_bytes(nfa: _Nfa, look: Optional[Look]) -> int:
+    """Terminal of a top-level alternative: a plain accept, or the
+    consume-then-rewind check of the lookahead character's bytes."""
+    if look is None:
+        return nfa.add(["accept", 0])
+    targets: list[int] = []
+    if look.eof_ok:
+        acc = nfa.add(["accept", 1])  # rewind the consumed EOF symbol
+        targets.append(nfa.add(["byte", [acc], EOF_SYMBOL, EOF_SYMBOL]))
+    for seq in utf8_byte_sequences(look.cps):
+        acc = nfa.add(["accept", len(seq)])
+        prev = acc
+        for blo, bhi in reversed(seq):
+            prev = nfa.add(["byte", [prev], blo, bhi])
+        targets.append(prev)
+    if not targets:
+        raise PatternError("unsatisfiable lookahead")
+    if len(targets) == 1:
+        return targets[0]
+    return nfa.add(["eps", list(targets)])
+
+
+def build_nfa_bytes(pat_str: str) -> tuple[_Nfa, int]:
+    """Priority NFA over bytes 0-255 and EOF_SYMBOL; returns (nfa, start)."""
+    ast = parse_pattern(pat_str)
+    nfa = _Nfa()
+    option_starts = [
+        _frag_for_toplevel(nfa, opt, utf8_byte_sequences, _frag_for_look_bytes)
+        for opt in ast.options
+    ]
+    start = nfa.add(["eps", option_starts])
+    return nfa, start
+
+
+@dataclass
+class ScannerDFA:
+    """Byte-level scanner automaton.
+
+    - ``trans[state, cls]``: next state (0 = dead; 1 = start).
+    - ``accept[state]``: -1 if not accepting, else the rewind (bytes to
+      subtract from the current position to get the match end).
+    - ``class_of[b]``: byte (0-255) or EOF_SYMBOL (256) to class id.
+    """
+
+    trans: np.ndarray  # [n_states, n_classes] uint16
+    accept: np.ndarray  # [n_states] int8
+    class_of: np.ndarray  # [257] uint16
+    n_states: int
+    n_classes: int
+    pat_str: str
+
+    START = 1
+    DEAD = 0
+
+
+def compile_pattern(pat_str: str, *, minimize: bool = True) -> ScannerDFA:
+    """The byte-level scanner automaton of ``pat_str`` (byte classes from
+    every byte-range endpoint, EOF always its own class)."""
+    ut.require_unicode_version()
+    nfa, start = build_nfa_bytes(pat_str)
+    trans, accept, class_of = _tables_from_nfa(nfa, start, EOF_SYMBOL + 1,
+                                               extra_bounds=(EOF_SYMBOL,))
+    dfa = ScannerDFA(trans=trans, accept=accept, class_of=class_of,
+                     n_states=trans.shape[0], n_classes=trans.shape[1], pat_str=pat_str)
+    return minimize_dfa(dfa) if minimize else dfa
+
+
+def minimize_dfa(dfa: ScannerDFA) -> ScannerDFA:
+    """``_moore_minimize`` of a byte-level automaton."""
+    new_trans, new_accept = _moore_minimize(dfa.trans, dfa.accept)
+    return ScannerDFA(trans=new_trans, accept=new_accept, class_of=dfa.class_of,
+                      n_states=new_trans.shape[0], n_classes=dfa.n_classes,
+                      pat_str=dfa.pat_str)
+
+
+def scan_bytes(dfa: ScannerDFA, data: bytes) -> list[int]:
+    """Maximal-munch scan. Returns piece start offsets (ascending); the
+    final piece ends at len(data). Empty input -> []."""
+    classes = (dfa.class_of[np.frombuffer(data, dtype=np.uint8)] if data
+               else np.zeros(0, np.uint16))
+    return scan_classes(dfa, classes.tolist(), len(data))
+
+
+def scan_classes(dfa: ScannerDFA, classes: list[int], n: int) -> list[int]:
+    """``scan_bytes`` over byte classes already looked up."""
+    eof_cls = int(dfa.class_of[EOF_SYMBOL])
+    trans = dfa.trans
+    accept = dfa.accept
+    starts: list[int] = []
+    i = 0
+    while i < n:
+        starts.append(i)
+        s = ScannerDFA.START
+        last_end = -1
+        p = i
+        while True:
+            cls = classes[p] if p < n else eof_cls
+            p += 1
+            s = int(trans[s][cls])
+            if s == ScannerDFA.DEAD:
+                break
+            a = int(accept[s])
+            if a >= 0:
+                last_end = p - a
+            if p > n:  # EOF consumed; nothing further to read
+                break
+        if last_end <= i:
+            raise RuntimeError(
+                f"scanner made no progress at offset {i} (pattern {dfa.pat_str!r})"
+            )
+        i = last_end
+    return starts
+
+
+def split_pieces(dfa: ScannerDFA, data: bytes) -> list[bytes]:
+    starts = scan_bytes(dfa, data)
+    bounds = starts + [len(data)]
+    return [data[a:b] for a, b in zip(bounds, bounds[1:])]

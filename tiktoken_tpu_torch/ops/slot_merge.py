@@ -69,7 +69,7 @@ def slot_merge_numpy(
 # ---------------------------------------------------------------------------
 
 
-def _lookup(buckets: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+def pair_ranks(buckets: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             ok: torch.Tensor, seed: int) -> torch.Tensor:
     """Pair rank of (a, b) (int64 holding uint32), RANK_MAX where not ok
     or absent."""
@@ -105,7 +105,7 @@ def slot_merge(buckets: torch.Tensor, byte_to_rank: torch.Tensor,
     alive = cols < L
     nxt = (cols + 1).expand(M, W).contiguous()
     right0 = torch.cat([tok[:, 1:], torch.zeros((M, 1), dtype=tok.dtype, device=dev)], 1)
-    r = _lookup(buckets, tok, right0, alive & (cols + 1 < L), seed)
+    r = pair_ranks(buckets, tok, right0, alive & (cols + 1 < L), seed)
     while True:
         k = torch.argmin(r, dim=1)  # leftmost minimum
         rmin = _take(r, k)
@@ -124,8 +124,8 @@ def slot_merge(buckets: torch.Tensor, byte_to_rank: torch.Tensor,
         has_l = is_l.any(dim=1)
         l = torch.argmax(is_l.to(torch.int8), dim=1)
         right_tok = _take(tok, jn.clamp(max=W - 1))
-        r_k = _lookup(buckets, rmin, right_tok, act & (jn < L[:, 0]), seed)
-        r_l = _lookup(buckets, _take(tok, l), rmin, act & has_l, seed)
+        r_k = pair_ranks(buckets, rmin, right_tok, act & (jn < L[:, 0]), seed)
+        r_l = pair_ranks(buckets, _take(tok, l), rmin, act & has_l, seed)
         r = _put(r, k, r_k, act)
         r = _put(r, l, r_l, act & has_l)
     tok = torch.where(alive, tok, 0)
