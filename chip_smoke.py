@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 
-1. the card's name and power limit; the build of the six CUDA kernels;
+1. the card's name and power limit; the build of the seven CUDA kernels;
 2. the bench vocabulary (assets/bench_vocab2_100000.tiktoken, 100,000
    ranks) with the o200k split pattern, its tables built and uploaded;
 3. a seeded 64 MB synthetic corpus (the bench corpus recipe), cut into
@@ -28,7 +28,24 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 6. every document decodes back to its bytes; the edge documents and four
    1 MB documents equal the host ``encode_ordinary``;
 6b. the v2 ids equal the v3 ids over the whole corpus, and the overflow
-   call's ids equal ``encode_ordinary``.
+   call's ids equal ``encode_ordinary``;
+7. the sharded engine (``tiktoken_tpu_torch.parallel``): ``encode_corpus3``
+   over every visible GPU and over a 2-way split of one card, each equal
+   to phase 5's ids document for document and with phase 5's count of host
+   fallbacks; a sharded ``pipeline=2`` call
+   of the random words that re-runs chunks through v1 and equals
+   ``encode_ordinary``; sharded ``encode_rows`` over those rows, equal to
+   the single-device v1 rows, with its ``CorpusStats`` checked;
+8. the training step on the dry run's feed at full size (phase 5's tokens,
+   one document per row, a piece start at each row's front, 2^20 bins):
+   ``corpus_pair_counts`` over every GPU, a 2-way split and a one-rank
+   NCCL group agree; the upload, the read-back and the whole call are
+   timed on the host clock; both ``pair_count`` entry points equal their
+   plain version on the same tensors, timed with CUDA events.
+
+Each main-path call (phases 5, 5b, 7 and 8) sets the launch counts to 0
+just before it and reads them just after, and fails if a kernel of its
+path was not launched.
 
 Before the last line it prints the card line and one JSON ``kernels``
 line; the last line is ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -52,6 +69,7 @@ CORPUS_MB = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT32_OPS_PER_S = 67e12  # float32 non-tensor rate, as the 32-bit ALU proxy
 KERNEL_OF = {
+    "pair_hist": "pair_count", "hist_argmax": "pair_count",
     "scan_rows": "scan_rows", "scan_validate": "scan_rows",
     "catalog": "compaction", "compact": "compaction", "compact_rows": "compaction",
     "route_right": "compaction", "expand_tokens": "compaction", "catalog2": "compaction",
@@ -72,6 +90,7 @@ REPLACES = {
     "byte_scan": "tiktoken_tpu/ops/window_scan.py:287; tiktoken_tpu/ops/window_scan.py:118; "
                  "tiktoken_tpu/ops/window_scan.py:197",
     "grid_merge": "tiktoken_tpu/ops/merge.py:116; tiktoken_tpu/ops/engine.py:281",
+    "pair_count": "tiktoken_tpu/parallel/train.py:60; tiktoken_tpu/parallel/train.py:28",
 }
 JAX_FUNCTIONS = {
     "scan_rows": ["pipeline3.row_gather", "charclass.make_byte_classes_fn",
@@ -87,12 +106,17 @@ JAX_FUNCTIONS = {
     "byte_scan": ["window_scan.make_seq_scan_fn", "window_scan.make_window_scan_fn",
                   "window_scan.make_orbit_fn"],
     "grid_merge": ["merge.make_merge_fn", "engine.build_pipeline_fn row assembly"],
+    "pair_count": ["parallel.train.make_pair_count_step.per_shard", "parallel.train._pair_hash"],
 }
 # which kernels each path must launch
 PATH_KERNELS = {
     "v3": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
     "v2": ("byte_scan", "compaction", "vocab_hit", "slot_merge"),
     "v2_overflow": ("byte_scan", "grid_merge"),
+    "sharded_v3": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
+    "sharded_v3_2way": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
+    "sharded_v2": ("byte_scan", "compaction", "grid_merge"),
+    "train": ("pair_count",),
 }
 
 CJK = "東京タワーは高い。パリは花の都、そして京都は古都です。春はあけぼの、やうやう白くなりゆく山際。"
@@ -389,6 +413,16 @@ def work_of(name, args, out) -> tuple[int, int]:
         fetched = int(counts[combo >= 0].sum())
         moved = nbytes([counts, combo, starts]) + 4 * fetched + nbytes(outs)
         ops = 2 * counts.numel() + int(out[1])
+    elif name == "pair_hist":
+        # tokens, alive and piece_start read once, the histogram written
+        # once; per position a scan step, per counted pair a hash and an add
+        tokens, alive, piece_start, _bits = args
+        moved = nbytes([tokens, alive, piece_start, out])
+        ops = tokens.numel() + 10 * int(out.sum())
+    elif name == "hist_argmax":
+        (hist,) = args
+        moved = hist.nbytes + nbytes(outs)
+        ops = hist.numel()
     else:
         raise KeyError(name)
     return moved, ops
@@ -396,8 +430,8 @@ def work_of(name, args, out) -> tuple[int, int]:
 
 def library_call(name, args, out):
     """One PyTorch call computing the core of the entry point, where
-    there is one, and whether it waits for the host (nonzero and
-    masked_select read their count back)."""
+    there is one, and whether it waits for the host (nonzero,
+    masked_select and bincount read a count back)."""
     if name == "catalog":
         rows, mask3 = args[0], args[1]
         C, KP = mask3.shape
@@ -445,6 +479,14 @@ def library_call(name, args, out):
                 0, row, counts)
 
         return assembly, False
+    if name == "pair_hist":
+        from tiktoken_tpu_torch.ops.pair_count import pair_bins
+
+        tokens, alive, piece_start, bits = args
+        bins = pair_bins(tokens, alive, piece_start, bits)
+        return (lambda: torch.bincount(bins, minlength=1 << bits)), True
+    if name == "hist_argmax":
+        return (lambda: torch.argmax(args[0])), False
     return None, False
 
 
@@ -663,9 +705,6 @@ def main() -> int:
     calls2, calls1, chunk2_ms, rows1_ms = kernel_phase2(enc, docs)
     measure(calls2, per, "v2")
     measure(calls1, per, "v1")
-    for k, e in per.items():
-        if not e["entries"]:
-            raise RuntimeError(f"kernel {k} did not run in any chunk program")
     phase_s["4b"] = time.perf_counter() - t0
 
     # ---- 5: the v3 main path --------------------------------------------------
@@ -734,6 +773,20 @@ def main() -> int:
     log(f"correctness v2: {len(all_docs)} documents equal the v3 ids ({len(tokens2)} tokens); "
         f"the overflow call equals the host encoder ({time.perf_counter() - t0:.1f} s)")
     phase_s["6b"] = time.perf_counter() - t0
+
+    # ---- 7: the sharded engine ----------------------------------------------
+    t0 = time.perf_counter()
+    sharded_phase(enc, eng, all_docs, tokens, offsets, run["fallback_docs"], words[0], launches)
+    phase_s["7"] = time.perf_counter() - t0
+
+    # ---- 8: the training step ------------------------------------------------
+    t0 = time.perf_counter()
+    calls_t = train_phase(tokens, offsets, launches)
+    measure(calls_t, per, "train")
+    for k, e in per.items():
+        if not e["entries"]:
+            raise RuntimeError(f"kernel {k} was not held against its plain version")
+    phase_s["8"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k}={v:.1f}" for k, v in phase_s.items()))
 
     rows = []
@@ -754,7 +807,7 @@ def main() -> int:
                 bound_ms=sum(x["bound_ms"] for x in e["entries"] if x["program"] == prog),
                 library_ms=sum(x["library_ms"] or 0.0 for x in e["entries"]
                                if x["program"] == prog) or None)
-                for prog in ("v3", "v2", "v1")
+                for prog in ("v3", "v2", "v1", "train")
                 if any(x["program"] == prog for x in e["entries"])},
         ))
     print(card)
@@ -765,29 +818,146 @@ def main() -> int:
     return 0
 
 
-def drive(enc, eng, texts, path: str, launches: dict, *, pipeline: int):
-    """One main-path call of ``encode_corpus_to_numpy`` on ``cuda`` with
-    the launch counts set to 0 just before and read just after; fails if
-    a kernel of the path was not launched. Returns (result, stats delta,
-    seconds)."""
+def counted(path: str, launches: dict, fn):
+    """Run ``fn`` with the launch counts set to 0 just before and read just
+    after; fails if a kernel of the path was not launched. Returns (fn's
+    result, seconds)."""
     from tiktoken_tpu_torch.ops import kernels
 
-    stats0 = dict(eng.stats)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    out = enc.encode_corpus_to_numpy(texts, device="cuda", pipeline=pipeline)
+    out = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches[path] = {"kernels": dict(kernels.launches), "entries": dict(kernels.entry_launches)}
     log(f"{path} launches: {launches[path]['kernels']}; by entry point "
         f"{launches[path]['entries']}")
-    log(f"{path} host-clock phases (s): " + ", ".join(
-        f"{k}={v:.3f}" for k, v in eng.timing.items()))
     for k in PATH_KERNELS[path]:
         if launches[path]["kernels"][k] <= 0:
             raise RuntimeError(f"kernel {k} was not launched on the {path} path")
+    return out, secs
+
+
+def drive(enc, eng, texts, path: str, launches: dict, *, pipeline: int):
+    """One main-path call of ``encode_corpus_to_numpy`` on ``cuda``, counted.
+    Returns (result, stats delta, seconds)."""
+    stats0 = dict(eng.stats)
+    out, secs = counted(path, launches, lambda: enc.encode_corpus_to_numpy(
+        texts, device="cuda", pipeline=pipeline))
+    log(f"{path} host-clock phases (s): " + ", ".join(
+        f"{k}={v:.3f}" for k, v in eng.timing.items()))
     return out, {k: eng.stats[k] - stats0[k] for k in eng.stats}, secs
+
+
+def sharded_phase(enc, eng, all_docs, tokens, offsets, fallback_docs: int, words: str,
+                  launches: dict) -> None:
+    """Phase 7: the sharded engine over every visible GPU and over a 2-way
+    split of one card, against phase 5's ids and host fallbacks, the host
+    encoder and the single-device v1 rows."""
+    from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, pack_documents
+    from tiktoken_tpu_torch.parallel import ShardedEngine, data_mesh
+
+    mesh = data_mesh()
+    n_gpus = len(set(mesh))
+    total_bytes = sum(len(d.encode("utf-8")) for d in all_docs)
+    for path, m in (("sharded_v3", mesh), ("sharded_v3_2way", [torch.device("cuda", 0)] * 2)):
+        sharded = ShardedEngine(eng, m)
+        ids, secs = counted(path, launches, lambda: sharded.encode_corpus3(
+            all_docs, host_fallback=enc, as_numpy=True))
+        bad = [i for i, a in enumerate(ids)
+               if not np.array_equal(a, tokens[offsets[i] : offsets[i + 1]])]
+        if bad:
+            raise RuntimeError(f"{path}: ids differ from phase 5's in documents {bad[:10]}")
+        if sharded.stats["fallback_docs"] != fallback_docs:
+            raise RuntimeError(f"{path}: {sharded.stats['fallback_docs']} documents fell back to "
+                               f"the host, phase 5 had {fallback_docs}")
+        log(f"{path} over {[str(d) for d in m]}: {total_bytes / secs / 1e6:.2f} MB/s "
+            f"({secs:.2f} s); {len(all_docs)} documents equal phase 5's ids and host "
+        f"fallbacks; stats "
+            f"{sharded.stats}; host-clock phases (s): "
+            + ", ".join(f"{k}={v:.3f}" for k, v in sharded.timing.items()))
+    sharded = ShardedEngine(eng, mesh)
+    got, secs = counted("sharded_v2", launches, lambda: sharded.encode_corpus(
+        [words], host_fallback=enc, pipeline=2, chunk_rows=128))
+    v1_runs = sharded.stats["v1_fallback_chunks"]
+    if got[0] != enc.encode_ordinary(words):
+        raise RuntimeError("sharded pipeline=2: ids differ from the host encoder")
+    if v1_runs <= 0:
+        raise RuntimeError("sharded pipeline=2 did not re-run a chunk through v1")
+    log(f"sharded_v2 over {len(mesh)} GPU(s): {len(words)} bytes of random words in "
+        f"{secs:.2f} s, equal to the host encoder; {v1_runs} of {sharded.stats['chunks']} "
+        f"chunks re-run through v1")
+    batch = pack_documents([words.encode()], DEFAULT_ROW)
+    packed, counts, row_bad, stats = sharded.encode_rows(batch)
+    want = eng.encode_rows(batch)
+    if not (np.array_equal(packed, want[0]) and np.array_equal(counts, want[1])
+            and np.array_equal(row_bad, want[2])):
+        raise RuntimeError("sharded encode_rows differs from the single-device v1 rows")
+    B = batch.rows.shape[0]
+    if not (stats.rows == B + (-B) % len(mesh) and stats.payload_bytes == int(batch.n_payload.sum())
+            and stats.tokens == int(counts.sum()) and stats.fallback_rows == int(row_bad.sum())):
+        raise RuntimeError(f"sharded encode_rows: the counters do not add up: {stats}")
+    log(f"sharded encode_rows: {B} rows equal the single-device v1 rows; {stats}")
+    log(f"GPUs taking part in the sharded runs: {n_gpus}")
+    if n_gpus == 1:
+        log("one GPU: the launch on a device other than the current one is unexercised here")
+
+
+def train_phase(tokens, offsets, launches: dict) -> list:
+    """Phase 8: the training step on the dry run's feed at full size; returns
+    the two kernel calls, for ``measure``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops.engine import to_device
+    from tiktoken_tpu_torch.parallel import HIST_BITS, corpus_pair_counts, data_mesh
+
+    lens = np.diff(offsets)
+    B, K = len(lens), int(lens.max())
+    grid = np.zeros((B, K), np.uint32)
+    alive = np.arange(K)[None, :] < lens[:, None]
+    grid[alive] = tokens
+    piece_start = np.zeros((B, K), bool)
+    piece_start[:, 0] = True
+    mesh = data_mesh()
+    (hist, best_bin, best_count), secs = counted("train", launches, lambda: corpus_pair_counts(
+        mesh, grid, alive, piece_start))
+    pairs = int(np.maximum(lens - 1, 0).sum())
+    if int(hist.sum()) != pairs or best_count != hist.max() or hist[best_bin] != best_count:
+        raise RuntimeError(f"training step: {int(hist.sum())} pairs counted, want {pairs}")
+    log(f"training step over {B} rows x {K} columns ({B * K} positions, {pairs} pairs, "
+        f"{grid.nbytes + 2 * alive.nbytes} bytes in): best bin {best_bin} count {best_count}; "
+        f"{secs * 1e3:.1f} ms on the host clock, uploads included")
+    split = corpus_pair_counts([torch.device("cuda", 0)] * 2, grid, alive, piece_start)
+    if not (np.array_equal(split[0], hist) and split[1:] == (best_bin, best_count)):
+        raise RuntimeError("training step: the 2-way split differs from the 1-way result")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            grouped = corpus_pair_counts(mesh, grid, alive, piece_start, group=dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+    if not (np.array_equal(grouped[0], hist) and grouped[1:] == (best_bin, best_count)):
+        raise RuntimeError("training step: the one-rank NCCL result differs")
+    log("training step: the 2-way split and the one-rank NCCL group equal the 1-way result")
+
+    def upload():
+        return [to_device(x, mesh[0]) for x in (grid.view(np.int32), alive, piece_start)]
+
+    upload_ms = wall_ms(upload, rounds=7)
+    dev_in = upload()
+    h = kernels.pair_hist(*dev_in, HIST_BITS)
+    readback_ms = wall_ms(lambda: h.cpu(), rounds=7)
+    whole_ms = wall_ms(lambda: corpus_pair_counts(mesh, grid, alive, piece_start), rounds=7)
+    log(f"training step split on {mesh[0]} (host clock, median of 7): pinned upload "
+        f"{upload_ms:.2f} ms, histogram read-back {readback_ms:.3f} ms, whole call over "
+        f"{len(mesh)} GPU(s) {whole_ms:.2f} ms; the kernels' device ms follow ('train')")
+    best = kernels.hist_argmax(h)
+    return [("pair_hist", (*dev_in, HIST_BITS), {}, h), ("hist_argmax", (h,), {}, best)]
 
 
 if __name__ == "__main__":

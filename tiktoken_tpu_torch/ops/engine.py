@@ -21,14 +21,18 @@ bytes, v2 hard cuts) to the host engine. Those fallbacks are counted in
 ``stats["fallback_docs"]``; they are never silent.
 
 Chunk inputs go up as plain pinned-memory copies on the current CUDA
-stream; every chunk is enqueued before the first header is read back.
+stream; every chunk is enqueued before the first header is read back. The
+chunk loops (``run_chunks3``, ``resolve_chunks2``) take a list of engines,
+chunk i running on the i-th modulo its length: one engine here, a mesh's
+in ``parallel.ShardedEngine``.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Sequence
 
 import numpy as np
@@ -62,6 +66,15 @@ DEFAULT_CHUNK_ROWS = 32768
 # while the set of chunk shapes stays bounded
 _CHUNK_TIERS = (8, 128, 2048, 8192, DEFAULT_CHUNK_ROWS)
 MAX_K = 256  # v3: scan work per row grows with the row buffer
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array -> a tensor on ``device``: on a GPU through a pinned
+    host copy, non-blocking on the device's current stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def quantize_chunk_rows(need: int, cap: int) -> int:
@@ -225,6 +238,195 @@ def _vocab_readiness(mergeable_ranks: dict[bytes, int], pt: PairTable,
     }
 
 
+def chunk_result3(tok: torch.Tensor, h: np.ndarray, C: int, nreal: int, lo: int):
+    """A v3 chunk's (tokens uint32, row_counts, row_bad, n_real_rows, first
+    row) from its token stream and its header read back."""
+    toks = tok[: int(h[-2])].cpu().numpy().view(np.uint32)
+    return (toks, h[:C][1 : nreal + 1].astype(np.int64), h[C : 2 * C][1 : nreal + 1].astype(bool),
+            nreal, lo)
+
+
+def fetch_rows1(outs: list, batch: PackedBatch):
+    """The enqueued v1 chunks of ``batch`` read back: (packed [B, K] uint32,
+    counts [B] int32, row_bad [B] bool, rounds: the most merge rounds of
+    any chunk)."""
+    if not outs:
+        K = batch.rows.shape[1] - LOOK
+        return np.zeros((0, K), np.uint32), np.zeros(0, np.int32), np.zeros(0, bool), 0
+    packed = np.concatenate([o[0][: o[4]].cpu().numpy().view(np.uint32) for o in outs])
+    counts = np.concatenate([o[1][: o[4]].cpu().numpy() for o in outs])
+    row_bad = np.concatenate([o[3][: o[4]].cpu().numpy() for o in outs])
+    return packed, counts, row_bad, max(int(o[2]) for o in outs)
+
+
+def assemble(docs: list[bytes], doc_index: np.ndarray, results, fallback_docs: set[int],
+             host_fallback, as_numpy: bool, stats: dict, timing: dict) -> list:
+    """Stitch the per-chunk token streams ((tokens, row_counts, row_bad, n,
+    first row) per chunk, in row order) back into documents. A document
+    with a bad row, or in ``fallback_docs``, is encoded by
+    ``host_fallback``; counted in ``stats`` ("rows", "fallback_docs"),
+    timed in ``timing`` ("assemble_s", "fallback_s")."""
+    out: list = [np.empty(0, np.uint32) if as_numpy else [] for _ in docs]
+    t0 = time.perf_counter()
+    frags: dict[int, list[np.ndarray]] = {}
+    for toks, counts, bad, n, lo in results:
+        d = doc_index[lo : lo + n]
+        fallback_docs.update(int(x) for x in np.unique(d[bad]))
+        offs = np.concatenate([[0], np.cumsum(counts)])
+        changes = np.nonzero(np.diff(d))[0] + 1
+        fr_start = np.concatenate([[0], changes])
+        fr_end = np.concatenate([changes, [n]])
+        for a, b in zip(fr_start, fr_end):
+            frags.setdefault(int(d[a]), []).append(toks[offs[a] : offs[b]])
+    for doc, parts in frags.items():
+        if doc in fallback_docs:
+            continue
+        arr = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        out[doc] = arr if as_numpy else arr.tolist()
+    stats["rows"] += len(doc_index)
+    t1 = time.perf_counter()
+    timing["assemble_s"] = t1 - t0
+    if fallback_docs:
+        stats["fallback_docs"] += len(fallback_docs)
+        if host_fallback is None:
+            raise ValueError(
+                f"{len(fallback_docs)} documents need host fallback but none given"
+            )
+        for d_i in fallback_docs:
+            toks = host_fallback.encode_ordinary(docs[d_i].decode("utf-8"))
+            out[d_i] = np.asarray(toks, dtype=np.uint32) if as_numpy else toks
+    timing["fallback_s"] = time.perf_counter() - t1
+    return out
+
+
+def chunk_bytes3(K: int, C: int) -> int:
+    """Bytes of the flat input of a v3 chunk of C rows."""
+    KP, KL = row_geometry(K)
+    return -(-(C * KP + KL + 8) // 128) * 128
+
+
+def run_chunks3(engines: Sequence["TorchEngine"], pc, chunk_rows: int, stats: dict,
+                timing: dict) -> list:
+    """Run every v3 chunk of ``pc``, chunk i on ``engines[i % n]``, all
+    enqueued before the first header is read back; a dispatch is one chunk
+    per engine. Returns [(tokens, row_counts, row_bad, n_real_rows, first
+    row)] per chunk. Slot 0 of each chunk is a ghost of the previous
+    chunk's last row: it re-provides its handoff boundary and emits
+    nothing. When a cap of a dispatch overflowed, the whole dispatch re-runs
+    through the worst-case caps, which by construction cannot overflow: a
+    header that still overflows is a fault and raises."""
+    B = pc.row_off.shape[0]
+    n = len(engines)
+    C = quantize_chunk_rows(-(-B // n) + 1, chunk_rows)
+    R = max(1, C - 1)  # real rows per chunk
+    C = R + 1
+    S = chunk_bytes3(pc.K, C)
+    t0 = time.perf_counter()
+    chunks = [(eng, lo, min(R, B - lo), *eng.enqueue3(pc, lo, R, C, S))
+              for lo, eng in zip(range(0, B, R), itertools.cycle(engines))]
+    t1 = time.perf_counter()
+    timing["enqueue_s"] = t1 - t0
+    results = []
+    for g in range(0, len(chunks), n):
+        group = chunks[g : g + n]
+        heads = [hdr.cpu().numpy() for *_, hdr in group]
+        if any(h[-1] for h in heads):
+            group = [(eng, lo, nreal, *eng.enqueue3(pc, lo, R, C, S, worst_case=True))
+                     for eng, lo, nreal, _, _ in group]
+            heads = [hdr.cpu().numpy() for *_, hdr in group]
+            stats["worst_case_chunks"] += len(group)
+        for (_, lo, nreal, tok, _), h in zip(group, heads):
+            if h[-1]:
+                raise RuntimeError(f"worst-case chunk program overflowed at row {lo}")
+            results.append(chunk_result3(tok, h, C, nreal, lo))
+    timing["fetch_s"] = time.perf_counter() - t1
+    stats["chunks"] += len(chunks)
+    return results
+
+
+def resolve_chunks2(engines: Sequence["TorchEngine"], batch: PackedBatch, chunk_rows: int,
+                    stats: dict, timing: dict) -> list:
+    """Run the v2 program over every row of ``batch``, chunk i on
+    ``engines[i % n]``, all enqueued before the first header is read back.
+    Returns [(tokens uint32, row_counts [n], row_bad [n], n, first row)] per
+    chunk; a chunk whose caps overflowed re-runs through its engine's v1
+    program, counted in ``stats["v1_fallback_chunks"]``."""
+    B = batch.rows.shape[0]
+    C = quantize_chunk_rows(-(-B // len(engines)), chunk_rows)
+    t0 = time.perf_counter()
+    pending = []
+    for lo, eng in zip(range(0, B, C), itertools.cycle(engines)):
+        rows, pay, tot, n = eng.upload_rows(batch, lo, C)
+        pending.append((eng, n, lo, *run_chunk2(eng.byte_tables(), rows, pay, tot)))
+    t1 = time.perf_counter()
+    timing["enqueue_s"] = t1 - t0
+    results = []
+    for eng, n, lo, flat, hdr in pending:
+        h = hdr.cpu().numpy()
+        if h[-1]:
+            stats["v1_fallback_chunks"] += 1
+            sl = slice(lo, lo + n)
+            sub = replace(batch, rows=batch.rows[sl], n_payload=batch.n_payload[sl],
+                          n_total=batch.n_total[sl], doc_index=batch.doc_index[sl],
+                          hard_cut_docs=frozenset())
+            packed, counts, bad = eng.encode_rows(sub, chunk_rows)
+            keep = np.arange(packed.shape[1])[None, :] < counts[:, None]
+            results.append((packed[keep], counts.astype(np.int64), bad, n, lo))
+            continue
+        toks = flat[: int(h[-2])].cpu().numpy().view(np.uint32)
+        results.append((toks, h[:n].astype(np.int64), h[C : C + n].astype(bool), n, lo))
+    timing["fetch_s"] = time.perf_counter() - t1
+    stats["chunks"] += len(pending)
+    return results
+
+
+def split_rows(results) -> tuple[list[np.ndarray], np.ndarray]:
+    """Per-chunk results -> (row_tokens, one uint32 array per row; row_bad
+    [B] bool)."""
+    row_tokens: list[np.ndarray] = []
+    for toks, counts, _bad, _n, _lo in results:
+        offs = np.concatenate([[0], np.cumsum(counts)])
+        row_tokens.extend(toks[offs[r] : offs[r + 1]] for r in range(len(counts)))
+    return row_tokens, np.concatenate([r[2] for r in results] or [np.zeros(0, bool)])
+
+
+def encode_corpus3_on(engines: Sequence["TorchEngine"], texts, host_fallback, K, chunk_rows,
+                      as_numpy: bool, stats: dict, timing: dict) -> list:
+    """The v3 corpus encoder over ``engines`` (one, or a mesh's): pack,
+    ``run_chunks3``, ``assemble``; ``timing`` is refilled for this call."""
+    if K and K > MAX_K:
+        # the caller asked for a geometry: cap it loudly, as JAX does
+        warnings.warn(f"row_capacity={K} capped to {MAX_K} on the device pipeline "
+                      "(scan cost grows with row length)", stacklevel=4)
+    K = min(K or K_DEFAULT, MAX_K)
+    docs = [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in texts]
+    timing.clear()
+    t0 = time.perf_counter()
+    pc = pack_corpus3(docs, K)
+    timing["pack_s"] = time.perf_counter() - t0
+    if pc.row_off.shape[0] == 0:
+        return [np.empty(0, np.uint32) if as_numpy else [] for _ in docs]
+    results = run_chunks3(engines, pc, chunk_rows or DEFAULT_CHUNK_ROWS, stats, timing)
+    return assemble(docs, pc.doc_index, results, set(), host_fallback, as_numpy, stats, timing)
+
+
+def encode_corpus2_on(engines: Sequence["TorchEngine"], texts, host_fallback, row_capacity,
+                      chunk_rows, as_numpy: bool, stats: dict, timing: dict) -> list:
+    """The v2 corpus encoder over ``engines``: ``pack_documents``,
+    ``resolve_chunks2``, ``assemble``; ``timing`` is refilled for this
+    call."""
+    docs = [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in texts]
+    timing.clear()
+    t0 = time.perf_counter()
+    batch = pack_documents(docs, row_capacity or DEFAULT_ROW)
+    timing["pack_s"] = time.perf_counter() - t0
+    if batch.rows.shape[0] == 0:
+        return [np.empty(0, np.uint32) if as_numpy else [] for _ in docs]
+    results = resolve_chunks2(engines, batch, chunk_rows or DEFAULT_CHUNK_ROWS, stats, timing)
+    return assemble(docs, batch.doc_index, results, set(batch.hard_cut_docs), host_fallback,
+                    as_numpy, stats, timing)
+
+
 class TorchEngine:
     """The tables of one (pat_str, vocabulary) on one device, and the v3
     and v2 corpus encoders over them."""
@@ -264,91 +466,14 @@ class TorchEngine:
         return self.tables
 
     def upload(self, arrays) -> list[torch.Tensor]:
-        """numpy chunk inputs -> tensors on the engine's device (pinned
-        host copies, non-blocking on the current stream)."""
-        out = []
-        for a in arrays:
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out.append(t)
-        return out
+        """numpy chunk inputs -> tensors on the engine's device."""
+        return [to_device(a, self.device) for a in arrays]
 
-    def _run_chunks(self, pc, chunk_rows: int):
-        """Run every chunk; returns [(tokens, row_counts, row_bad, n_real_rows,
-        first row)] per chunk. Slot 0 of each chunk is a ghost of the
-        previous chunk's last row: it re-provides its handoff boundary and
-        emits nothing."""
-        B = pc.row_off.shape[0]
-        K = pc.K
-        KP, KL = row_geometry(K)
-        C = quantize_chunk_rows(B + 1, chunk_rows)
-        R = max(1, C - 1)  # real rows per chunk
-        C = R + 1
-        S = -(-(C * KP + KL + 8) // 128) * 128
-        t0 = time.perf_counter()
-        pending = []
-        for lo in range(0, B, R):
-            inputs, nreal = chunk_inputs3(pc, lo, R, C, S)
-            tok, hdr = run_chunk(self.tables, *self.upload(inputs), K=K)
-            pending.append((lo, nreal, tok, hdr))
-        t1 = time.perf_counter()
-        self.timing["enqueue_s"] = t1 - t0
-        results = []
-        for lo, nreal, tok, hdr in pending:
-            h = hdr.cpu().numpy()
-            if h[-1]:
-                # a cap overflowed: re-run through the worst-case caps,
-                # which by construction cannot overflow
-                inputs, _ = chunk_inputs3(pc, lo, R, C, S)
-                tok, hdr = run_chunk(self.tables, *self.upload(inputs), K=K, worst_case=True)
-                h = hdr.cpu().numpy()
-                if h[-1]:
-                    raise RuntimeError(f"worst-case chunk program overflowed at row {lo}")
-                self.stats["worst_case_chunks"] += 1
-            toks = tok[: int(h[-2])].cpu().numpy().view(np.uint32)
-            results.append((toks, h[:C][1 : nreal + 1].astype(np.int64),
-                            h[C : 2 * C][1 : nreal + 1].astype(bool), nreal, lo))
-        self.timing["fetch_s"] = time.perf_counter() - t1
-        self.stats["chunks"] += len(pending)
-        return results
-
-    def _assemble(self, docs: list[bytes], doc_index: np.ndarray, results,
-                  fallback_docs: set[int], host_fallback, as_numpy: bool) -> list:
-        """Stitch the per-chunk token streams ((tokens, row_counts, row_bad,
-        n, first row) per chunk) back into documents. A document with a bad
-        row, or in ``fallback_docs``, is encoded by ``host_fallback``."""
-        out: list = [np.empty(0, np.uint32) if as_numpy else [] for _ in docs]
-        t0 = time.perf_counter()
-        frags: dict[int, list[np.ndarray]] = {}
-        for toks, counts, bad, n, lo in results:
-            d = doc_index[lo : lo + n]
-            fallback_docs.update(int(x) for x in np.unique(d[bad]))
-            offs = np.concatenate([[0], np.cumsum(counts)])
-            changes = np.nonzero(np.diff(d))[0] + 1
-            fr_start = np.concatenate([[0], changes])
-            fr_end = np.concatenate([changes, [n]])
-            for a, b in zip(fr_start, fr_end):
-                frags.setdefault(int(d[a]), []).append(toks[offs[a] : offs[b]])
-        for doc, parts in frags.items():
-            if doc in fallback_docs:
-                continue
-            arr = parts[0] if len(parts) == 1 else np.concatenate(parts)
-            out[doc] = arr if as_numpy else arr.tolist()
-        self.stats["rows"] += len(doc_index)
-        t1 = time.perf_counter()
-        self.timing["assemble_s"] = t1 - t0
-        if fallback_docs:
-            self.stats["fallback_docs"] += len(fallback_docs)
-            if host_fallback is None:
-                raise ValueError(
-                    f"{len(fallback_docs)} documents need host fallback but none given"
-                )
-            for d_i in fallback_docs:
-                toks = host_fallback.encode_ordinary(docs[d_i].decode("utf-8"))
-                out[d_i] = np.asarray(toks, dtype=np.uint32) if as_numpy else toks
-        self.timing["fallback_s"] = time.perf_counter() - t1
-        return out
+    def enqueue3(self, pc, lo: int, R: int, C: int, S: int, worst_case: bool = False):
+        """Upload the v3 chunk of real rows [lo, lo+R) (ghost row first) and
+        enqueue its program on the engine's device: (tokens, header)."""
+        inputs, _ = chunk_inputs3(pc, lo, R, C, S)
+        return run_chunk(self.tables, *self.upload(inputs), K=pc.K, worst_case=worst_case)
 
     def encode_corpus3(self, texts: Sequence[str] | Sequence[bytes], host_fallback=None,
                        K: int | None = None, chunk_rows: int | None = None,
@@ -356,23 +481,12 @@ class TorchEngine:
         """Encode documents on the engine's device, byte-exact with the
         host ``encode_ordinary``. ``as_numpy=True`` returns per-document
         uint32 arrays instead of lists of ints."""
-        if K and K > MAX_K:
-            # the caller asked for a geometry: cap it loudly, as JAX does
-            warnings.warn(f"row_capacity={K} capped to {MAX_K} on the device pipeline "
-                          "(scan cost grows with row length)", stacklevel=3)
-        K = min(K or K_DEFAULT, MAX_K)
-        docs = [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in texts]
-        t0 = time.perf_counter()
-        pc = pack_corpus3(docs, K)
-        self.timing = {"pack_s": time.perf_counter() - t0}
-        if pc.row_off.shape[0] == 0:
-            return [np.empty(0, np.uint32) if as_numpy else [] for _ in docs]
-        results = self._run_chunks(pc, chunk_rows or DEFAULT_CHUNK_ROWS)
-        return self._assemble(docs, pc.doc_index, results, set(), host_fallback, as_numpy)
+        return encode_corpus3_on([self], texts, host_fallback, K, chunk_rows, as_numpy,
+                                 self.stats, self.timing)
 
     # -- v2 (byte-level sequential scanner) and its v1 re-run -----------------
 
-    def _chunk(self, batch: PackedBatch, lo: int, C: int):
+    def upload_rows(self, batch: PackedBatch, lo: int, C: int):
         """Rows [lo, lo+C) of the batch, zero-padded to C, on the device;
         returns (rows, n_payload, n_total, n_real)."""
         rows = batch.rows[lo : lo + C]
@@ -388,68 +502,26 @@ class TorchEngine:
     def encode_rows(self, batch: PackedBatch, chunk_rows: int = DEFAULT_CHUNK_ROWS):
         """The v1 program over every row: (packed [B, K] uint32, counts [B]
         int32, row_bad [B] bool) as numpy arrays."""
-        B, KL = batch.rows.shape
-        K = KL - LOOK
+        return fetch_rows1(self.enqueue_rows1(batch, chunk_rows), batch)[:3]
+
+    def enqueue_rows1(self, batch: PackedBatch, chunk_rows: int = DEFAULT_CHUNK_ROWS) -> list:
+        """Enqueue the v1 program over every row, chunk by chunk, on the
+        engine's device; ``fetch_rows1`` reads the results back."""
+        B = batch.rows.shape[0]
         if B == 0:
-            return np.zeros((0, K), np.uint32), np.zeros(0, np.int32), np.zeros(0, bool)
+            return []
         t = self.byte_tables()
         C = quantize_chunk_rows(B, chunk_rows)
         outs = []
         for lo in range(0, B, C):
-            rows, pay, tot, n = self._chunk(batch, lo, C)
-            packed, counts, _rounds, bad = run_rows1(t, rows, pay, tot)
-            outs.append((packed, counts, bad, n))
-        packed = np.concatenate([o[0][: o[3]].cpu().numpy().view(np.uint32) for o in outs])
-        counts = np.concatenate([o[1][: o[3]].cpu().numpy() for o in outs])
-        row_bad = np.concatenate([o[2][: o[3]].cpu().numpy() for o in outs])
-        return packed, counts, row_bad
-
-    def _resolve_chunks(self, batch: PackedBatch, chunk_rows: int):
-        """Run the v2 program on every chunk, then yield (tokens uint32,
-        row_counts [n], row_bad [n], n, lo) per chunk; a chunk whose caps
-        overflowed is re-run through the v1 program."""
-        B = batch.rows.shape[0]
-        t = self.byte_tables()
-        C = quantize_chunk_rows(B, chunk_rows)
-        t0 = time.perf_counter()
-        pending = []
-        for lo in range(0, B, C):
-            rows, pay, tot, n = self._chunk(batch, lo, C)
-            pending.append((*run_chunk2(t, rows, pay, tot), n, lo))
-        t1 = time.perf_counter()
-        self.timing["enqueue_s"] = t1 - t0
-        results = []
-        for flat, hdr, n, lo in pending:
-            h = hdr.cpu().numpy()
-            if h[-1]:
-                self.stats["v1_fallback_chunks"] += 1
-                sub = PackedBatch(
-                    rows=batch.rows[lo : lo + n], n_payload=batch.n_payload[lo : lo + n],
-                    n_total=batch.n_total[lo : lo + n], doc_index=batch.doc_index[lo : lo + n],
-                    hard_cut_docs=frozenset(), row_capacity=batch.row_capacity,
-                )
-                packed, counts, bad = self.encode_rows(sub, chunk_rows)
-                keep = np.arange(packed.shape[1])[None, :] < counts[:, None]
-                results.append((packed[keep], counts.astype(np.int64), bad, n, lo))
-                continue
-            toks = flat[: int(h[-2])].cpu().numpy().view(np.uint32)
-            results.append((toks, h[:n].astype(np.int64), h[C : C + n].astype(bool), n, lo))
-        self.timing["fetch_s"] = time.perf_counter() - t1
-        self.stats["chunks"] += len(pending)
-        return results
+            rows, pay, tot, n = self.upload_rows(batch, lo, C)
+            outs.append((*run_rows1(t, rows, pay, tot), n))
+        return outs
 
     def encode_rows_tokens(self, batch: PackedBatch, chunk_rows: int = DEFAULT_CHUNK_ROWS):
         """The v2 path row by row: (row_tokens, one uint32 array per row;
         row_bad [B] bool)."""
-        if batch.rows.shape[0] == 0:
-            return [], np.zeros(0, bool)
-        row_tokens: list[np.ndarray] = []
-        row_bad = []
-        for toks, counts, bad, _n, _lo in self._resolve_chunks(batch, chunk_rows):
-            offs = np.concatenate([[0], np.cumsum(counts)])
-            row_tokens.extend(toks[offs[r] : offs[r + 1]] for r in range(len(counts)))
-            row_bad.append(bad)
-        return row_tokens, np.concatenate(row_bad)
+        return split_rows(resolve_chunks2([self], batch, chunk_rows, self.stats, self.timing))
 
     def encode_corpus(self, texts: Sequence[str] | Sequence[bytes], host_fallback=None,
                       row_capacity: int = DEFAULT_ROW, chunk_rows: int | None = None,
@@ -458,12 +530,5 @@ class TorchEngine:
         with the byte-level scanner (v1 for overflowing chunks), byte-exact
         with the host ``encode_ordinary``. ``as_numpy=True`` returns
         per-document uint32 arrays instead of lists of ints."""
-        docs = [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in texts]
-        t0 = time.perf_counter()
-        batch = pack_documents(docs, row_capacity)
-        self.timing = {"pack_s": time.perf_counter() - t0}
-        if batch.rows.shape[0] == 0:
-            return [np.empty(0, np.uint32) if as_numpy else [] for _ in docs]
-        results = self._resolve_chunks(batch, chunk_rows or DEFAULT_CHUNK_ROWS)
-        return self._assemble(docs, batch.doc_index, results, set(batch.hard_cut_docs),
-                              host_fallback, as_numpy)
+        return encode_corpus2_on([self], texts, host_fallback, row_capacity, chunk_rows, as_numpy,
+                                 self.stats, self.timing)

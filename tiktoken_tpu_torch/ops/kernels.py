@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels: build, binding, wrappers, counts.
 
-Six kernels carry the v3, v2 and v1 chunk programs on Hopper (sources
-in ``tiktoken_tpu_torch/csrc``, each with a note on what it replaces, what
+Six kernels carry the v3, v2 and v1 chunk programs on Hopper, and a
+seventh the pair-count training step (sources in
+``tiktoken_tpu_torch/csrc``, each with a note on what it replaces, what
 bounds it and how its design answers that):
 
 - ``scan_rows``: row gather, char classes and the handshake DFA scan
@@ -14,16 +15,21 @@ bounds it and how its design answers that):
 - ``byte_scan``: the byte-level scanners, the v2 sequential scan
   (``seq_scan``), the v1 window scan (``window_scan``) and orbit
   (``orbit``);
-- ``grid_merge``: the v1 full-grid greedy BPE and row packing.
+- ``grid_merge``: the v1 full-grid greedy BPE and row packing;
+- ``pair_count``: the hashed pair histogram of a token grid
+  (``tt_pair_hist``) and its first argmax (``tt_hist_argmax``).
 
 Each source is compiled at first use by its own ``nvcc`` process (all
 started together) into a shared library with a plain C interface, under
 ``tiktoken_tpu_torch/build/``, and loaded with ctypes. Every wrapper
 checks device, dtype, shape and contiguity, allocates its outputs with
-``torch.empty``, launches on the current CUDA stream, raises if the entry
-point returns a CUDA error, and adds one to its kernel's count in
-``launches`` (and to its entry point's in ``entry_launches``). A wrapper runs the plain PyTorch version only when its
-tensors lie on the CPU; a CUDA tensor always goes to the kernel.
+``torch.empty``, raises if the entry point returns a CUDA error, and adds
+one to its kernel's count in ``launches`` (and to its entry point's in
+``entry_launches``). A wrapper launches on its tensors' device, on that
+device's current stream, whatever device is current when it is called:
+the entry point runs with that device made current. A wrapper runs the
+plain PyTorch version only when its tensors lie on the CPU; a CUDA tensor
+always goes to the kernel.
 """
 
 from __future__ import annotations
@@ -39,12 +45,14 @@ from types import SimpleNamespace
 
 import torch
 
-from tiktoken_tpu_torch.ops import compaction, merge, pieces, slot_merge as slot_merge_mod
+from tiktoken_tpu_torch.ops import compaction, merge, pair_count as pair_count_mod, pieces
+from tiktoken_tpu_torch.ops import slot_merge as slot_merge_mod
 from tiktoken_tpu_torch.ops import sweep_scan, window_scan as window_scan_mod
 from tiktoken_tpu_torch.ops.charclass import na_cap
 from tiktoken_tpu_torch.ops.sweep_scan import ScanTables
 
-KERNELS = ("scan_rows", "compaction", "vocab_hit", "slot_merge", "byte_scan", "grid_merge")
+KERNELS = ("scan_rows", "compaction", "vocab_hit", "slot_merge", "byte_scan", "grid_merge",
+           "pair_count")
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -95,6 +103,11 @@ _SIGNATURES = {
     },
     "grid_merge": {
         "tt_grid_merge": [_P, _I, _U, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    },
+    "pair_count": {
+        "tt_pair_hist": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+        "tt_hist_argmax": [_P, _I, _I, _P, _P, _P],
+        "tt_pair_tiles": [_I],
     },
 }
 
@@ -163,16 +176,17 @@ def build() -> _Libraries:
     return _LIBS
 
 
-def _call(kernel: str, fn: str, *args) -> None:
-    err = getattr(_LIBS.load()[kernel], fn)(*args)
+def _call(kernel: str, fn: str, dev: torch.device, *args) -> None:
+    """Run entry point ``fn`` of ``kernel`` with ``dev`` current and its
+    current stream as the last argument: the entry points' launches and
+    ``cudaFuncSetAttribute`` act on the runtime's current device."""
+    entry = getattr(_LIBS.load()[kernel], fn)
+    with torch.cuda.device(dev):
+        err = entry(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel}.{fn} failed with CUDA error {err}")
     launches[kernel] += 1
     entry_launches[fn] = entry_launches.get(fn, 0) + 1
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> int:
@@ -230,8 +244,8 @@ def scan_rows(tables: ScanTables, flat, row_off, n_payload, n_total, is_doc_end,
     spec_f = torch.empty(C, dtype=i32, device=dev)
     row_bad = torch.empty(C, dtype=b, device=dev)
     na_over = torch.empty(C, dtype=b, device=dev)
-    _call("scan_rows", "tt_scan_rows", *args, rows.data_ptr(), mask.data_ptr(),
-          spec_f.data_ptr(), row_bad.data_ptr(), na_over.data_ptr(), _stream(dev))
+    _call("scan_rows", "tt_scan_rows", dev, *args, rows.data_ptr(), mask.data_ptr(),
+          spec_f.data_ptr(), row_bad.data_ptr(), na_over.data_ptr())
     return rows, mask, spec_f, row_bad, na_over.any()
 
 
@@ -252,8 +266,7 @@ def scan_validate(mask, spec_f, row_bad, n_payload, prev_same_doc, emit):
     ]
     mask3 = torch.empty((C, KP), dtype=torch.bool, device=dev)
     bad = torch.empty(C, dtype=torch.bool, device=dev)
-    _call("scan_rows", "tt_scan_validate", *args, mask3.data_ptr(), bad.data_ptr(),
-          _stream(dev))
+    _call("scan_rows", "tt_scan_validate", dev, *args, mask3.data_ptr(), bad.data_ptr())
     return mask3, bad
 
 
@@ -285,8 +298,8 @@ def catalog(rows, mask3, spec_f, row_bad, p_cap: int):
     bad = torch.empty(C, dtype=torch.bool, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     scratch = _tile_scratch(C * KP, dev)
-    _call("compaction", "tt_catalog", *args, starts.data_ptr(), words.data_ptr(),
-          lens.data_ptr(), bad.data_ptr(), count.data_ptr(), scratch.data_ptr(), _stream(dev))
+    _call("compaction", "tt_catalog", dev, *args, starts.data_ptr(), words.data_ptr(),
+          lens.data_ptr(), bad.data_ptr(), count.data_ptr(), scratch.data_ptr())
     return starts, words, lens, bad, count
 
 
@@ -312,9 +325,9 @@ def compact(valid, payloads, out_size: int):
     count = torch.empty((), dtype=torch.int32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     scratch = _tile_scratch(n, dev)
-    _call("compaction", "tt_compact", _check("valid", valid, torch.bool, (n,), dev), n, k,
+    _call("compaction", "tt_compact", dev, _check("valid", valid, torch.bool, (n,), dev), n, k,
           ctypes.cast(ins, _P), ctypes.cast(out_ptrs, _P), ctypes.cast(widths, _P), out_size,
-          count.data_ptr(), slot.data_ptr(), scratch.data_ptr(), _stream(dev))
+          count.data_ptr(), slot.data_ptr(), scratch.data_ptr())
     return outs, count, slot
 
 
@@ -329,7 +342,7 @@ def compact_rows(valid, vals):
             _check("vals", vals, torch.int32, (M, W), dev), M, W]
     out = torch.empty((M, W), dtype=torch.int32, device=dev)
     count = torch.empty(M, dtype=torch.int32, device=dev)
-    _call("compaction", "tt_compact_rows", *args, out.data_ptr(), count.data_ptr(), _stream(dev))
+    _call("compaction", "tt_compact_rows", dev, *args, out.data_ptr(), count.data_ptr())
     return out, count
 
 
@@ -342,7 +355,7 @@ def route_right(dst, values, out_size: int):
     args = [_check("dst", dst, torch.int32, (n,), dev),
             _check("values", values, torch.int32, (n,), dev), n, out_size]
     out = torch.empty(out_size, dtype=torch.int32, device=dev)
-    _call("compaction", "tt_route", *args, out.data_ptr(), _stream(dev))
+    _call("compaction", "tt_route", dev, *args, out.data_ptr())
     return out
 
 
@@ -360,8 +373,8 @@ def expand_tokens(counts, combo, m_tok, l_tok, out_size: int):
     tok = torch.empty(out_size, dtype=torch.int32, device=dev)
     total = torch.empty((), dtype=torch.int32, device=dev)
     scratch = _tile_scratch(n, dev)
-    _call("compaction", "tt_expand_tokens", *args, tok.data_ptr(), total.data_ptr(),
-          scratch.data_ptr(), _stream(dev))
+    _call("compaction", "tt_expand_tokens", dev, *args, tok.data_ptr(), total.data_ptr(),
+          scratch.data_ptr())
     return tok, total
 
 
@@ -381,7 +394,7 @@ def vocab_hit(buckets, words, lens, seed: int):
             _check("words", words, torch.int32, (P, 4), dev),
             _check("lens", lens, torch.int32, (P,), dev), P, seed]
     out = torch.empty(P, dtype=torch.int32, device=dev)
-    _call("vocab_hit", "tt_vocab_hit", *args, out.data_ptr(), _stream(dev))
+    _call("vocab_hit", "tt_vocab_hit", dev, *args, out.data_ptr())
     return out
 
 
@@ -398,7 +411,7 @@ def long_vocab_hit(buckets, slot_bytes, lens, seed: int):
     if slot_bytes.data_ptr() % 4:
         raise ValueError("slot_bytes must be 4-byte aligned")
     out = torch.empty(M, dtype=torch.int32, device=dev)
-    _call("vocab_hit", "tt_long_vocab_hit", *args, out.data_ptr(), _stream(dev))
+    _call("vocab_hit", "tt_long_vocab_hit", dev, *args, out.data_ptr())
     return out
 
 
@@ -426,8 +439,7 @@ def slot_merge(buckets, byte_to_rank, slot_bytes, lens, seed: int):
             _check("lens", lens, torch.int32, (M,), dev), M]
     tok = torch.empty((M, W), dtype=torch.int32, device=dev)
     alive = torch.empty((M, W), dtype=torch.bool, device=dev)
-    _call("slot_merge", "tt_slot_merge", *args, tok.data_ptr(), alive.data_ptr(),
-          _stream(dev))
+    _call("slot_merge", "tt_slot_merge", dev, *args, tok.data_ptr(), alive.data_ptr())
     return tok, alive
 
 
@@ -452,8 +464,8 @@ def catalog2(piece_start, n_payload, rows, row_bad, p_cap: int):
     bad = torch.empty(C, dtype=torch.bool, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     scratch = _tile_scratch(C * K, dev)
-    _call("compaction", "tt_catalog2", *args, starts.data_ptr(), words.data_ptr(),
-          lens.data_ptr(), bad.data_ptr(), count.data_ptr(), scratch.data_ptr(), _stream(dev))
+    _call("compaction", "tt_catalog2", dev, *args, starts.data_ptr(), words.data_ptr(),
+          lens.data_ptr(), bad.data_ptr(), count.data_ptr(), scratch.data_ptr())
     return starts, words, lens, bad, count
 
 
@@ -469,7 +481,7 @@ def extract_slots(rows, starts, lens, K: int):
             _check("starts", starts, torch.int32, (n,), dev),
             _check("lens", lens, torch.int32, (n,), dev), n, width]
     out = torch.empty((n, width), dtype=torch.uint8, device=dev)
-    _call("compaction", "tt_extract_slots", *args, out.data_ptr(), _stream(dev))
+    _call("compaction", "tt_extract_slots", dev, *args, out.data_ptr())
     return out
 
 
@@ -491,8 +503,8 @@ def expand_tokens_rows(counts, combo, m_tok, l_tok, out_size: int, starts, K: in
     total = torch.empty((), dtype=torch.int32, device=dev)
     row_counts = torch.empty(n_rows, dtype=torch.int32, device=dev)
     scratch = _tile_scratch(n, dev)
-    _call("compaction", "tt_expand_tokens_rows", *args, tok.data_ptr(), total.data_ptr(),
-          row_counts.data_ptr(), scratch.data_ptr(), _stream(dev))
+    _call("compaction", "tt_expand_tokens_rows", dev, *args, tok.data_ptr(), total.data_ptr(),
+          row_counts.data_ptr(), scratch.data_ptr())
     return tok, total, row_counts
 
 
@@ -515,7 +527,7 @@ def seq_scan(packed, rows, n_payload, n_total, *, K: int):
             _check("n_total", n_total, torch.int32, (C,), dev)]
     mask = torch.empty((C, K), dtype=torch.bool, device=dev)
     bad = torch.empty(C, dtype=torch.bool, device=dev)
-    _call("byte_scan", "tt_seq_scan", *args, mask.data_ptr(), bad.data_ptr(), _stream(dev))
+    _call("byte_scan", "tt_seq_scan", dev, *args, mask.data_ptr(), bad.data_ptr())
     return mask, bad
 
 
@@ -535,8 +547,8 @@ def window_scan(packed, rows, n_total, *, K: int, window: int = window_scan_mod.
     hop = torch.empty((C, K), dtype=torch.int32, device=dev)
     unresolved = torch.empty((C, K), dtype=torch.bool, device=dev)
     counter = torch.empty((), dtype=torch.int64, device=dev)
-    _call("byte_scan", "tt_window_scan", *args, hop.data_ptr(), unresolved.data_ptr(),
-          counter.data_ptr(), _stream(dev))
+    _call("byte_scan", "tt_window_scan", dev, *args, hop.data_ptr(), unresolved.data_ptr(),
+          counter.data_ptr())
     return hop, unresolved
 
 
@@ -552,7 +564,7 @@ def orbit(hop, unresolved, valid_len):
             _check("valid_len", valid_len, torch.int32, (C,), dev), C, K]
     mask = torch.empty((C, K), dtype=torch.bool, device=dev)
     bad = torch.empty(C, dtype=torch.bool, device=dev)
-    _call("byte_scan", "tt_orbit", *args, mask.data_ptr(), bad.data_ptr(), _stream(dev))
+    _call("byte_scan", "tt_orbit", dev, *args, mask.data_ptr(), bad.data_ptr())
     return mask, bad
 
 
@@ -579,20 +591,64 @@ def grid_merge(buckets, byte_to_rank, rows, piece_start, n_payload, seed: int):
     packed = torch.empty((C, K), dtype=torch.int32, device=dev)
     counts = torch.empty(C, dtype=torch.int32, device=dev)
     rounds = torch.empty((), dtype=torch.int32, device=dev)
-    _call("grid_merge", "tt_grid_merge", *args, packed.data_ptr(), counts.data_ptr(),
-          rounds.data_ptr(), _stream(dev))
+    _call("grid_merge", "tt_grid_merge", dev, *args, packed.data_ptr(), counts.data_ptr(),
+          rounds.data_ptr())
     return packed, counts, rounds
 
 
-# The chunk programs' two sets of operations: the kernels (plain versions
-# on CPU tensors), and the plain versions everywhere — the yardstick the
-# chip check holds each kernel against.
+# ---------------------------------------------------------------------------
+# pair_count
+# ---------------------------------------------------------------------------
+
+ARGMAX_ITEMS_PER_BLOCK = 2048  # first-stage histogram bins per block of tt_hist_argmax
+
+
+def pair_hist(tokens, alive, piece_start, bits: int):
+    """B15 -> hist [2^bits] i32 of the counted pairs' bins; see
+    ``pair_count.pair_hist``."""
+    if _on_cpu(tokens):
+        return pair_count_mod.pair_hist(tokens, alive, piece_start, bits)
+    dev = _dev(tokens)
+    B, K = tokens.shape
+    if not 1 <= bits <= 30:
+        raise ValueError(f"hist bits must be in 1..30, got {bits}")
+    args = [_check("tokens", tokens, torch.int32, (B, K), dev),
+            _check("alive", alive, torch.bool, (B, K), dev),
+            _check("piece_start", piece_start, torch.bool, (B, K), dev), B, K, bits]
+    hist = torch.empty(1 << bits, dtype=torch.int32, device=dev)
+    tiles = _LIBS.load()["pair_count"].tt_pair_tiles(K)
+    scratch = torch.empty(max(1, 2 * B * tiles), dtype=torch.int32, device=dev)
+    _call("pair_count", "tt_pair_hist", dev, *args, hist.data_ptr(), scratch.data_ptr())
+    return hist
+
+
+def hist_argmax(hist):
+    """hist [n] i32 -> (best_bin, best_count), 0-d i32: the first bin of
+    the maximum; see ``pair_count.hist_argmax``."""
+    if _on_cpu(hist):
+        return pair_count_mod.hist_argmax(hist)
+    dev = _dev(hist)
+    (n,) = hist.shape
+    if n == 0:
+        raise ValueError("hist_argmax of an empty histogram")
+    blocks = min(1024, -(-n // ARGMAX_ITEMS_PER_BLOCK))
+    partial = torch.empty(blocks, dtype=torch.int64, device=dev)
+    out = torch.empty(2, dtype=torch.int32, device=dev)
+    _call("pair_count", "tt_hist_argmax", dev, _check("hist", hist, torch.int32, (n,), dev), n,
+          blocks, partial.data_ptr(), out.data_ptr())
+    return out[0], out[1]
+
+
+# The two sets of operations of the chunk programs and the training step:
+# the kernels (plain versions on CPU tensors), and the plain versions
+# everywhere — the yardstick the chip check holds each kernel against.
 KERNEL_OPS = SimpleNamespace(
     scan_rows=scan_rows, scan_validate=scan_validate, catalog=catalog, compact=compact,
     compact_rows=compact_rows, route_right=route_right, expand_tokens=expand_tokens,
     vocab_hit=vocab_hit, long_vocab_hit=long_vocab_hit, slot_merge=slot_merge,
     catalog2=catalog2, extract_slots=extract_slots, expand_tokens_rows=expand_tokens_rows,
     seq_scan=seq_scan, window_scan=window_scan, orbit=orbit, grid_merge=grid_merge,
+    pair_hist=pair_hist, hist_argmax=hist_argmax,
 )
 PLAIN_OPS = SimpleNamespace(
     scan_rows=sweep_scan.scan_rows, scan_validate=sweep_scan.scan_validate,
@@ -603,5 +659,6 @@ PLAIN_OPS = SimpleNamespace(
     catalog2=compaction.catalog2, extract_slots=compaction.extract_slots,
     expand_tokens_rows=compaction.expand_tokens_rows, seq_scan=window_scan_mod.seq_scan,
     window_scan=window_scan_mod.window_scan, orbit=window_scan_mod.orbit,
-    grid_merge=merge.grid_merge,
+    grid_merge=merge.grid_merge, pair_hist=pair_count_mod.pair_hist,
+    hist_argmax=pair_count_mod.hist_argmax,
 )

@@ -21,7 +21,7 @@ glue on the device is listed in ``run_chunk``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Sequence
 
 import numpy as np
@@ -215,6 +215,16 @@ class ChunkTables:
     @property
     def device(self) -> torch.device:
         return self.pair_buckets.device
+
+    def to(self, device: torch.device) -> "ChunkTables":
+        """A copy of every table on ``device``, the byte-level scan table
+        too once it is built."""
+        return replace(
+            self, scan=self.scan.to(device), pair_buckets=self.pair_buckets.to(device),
+            byte_to_rank=self.byte_to_rank.to(device),
+            vocab_buckets=self.vocab_buckets.to(device),
+            long_buckets=self.long_buckets.to(device),
+            byte_scan=None if self.byte_scan is None else self.byte_scan.to(device))
 
 
 def upload_tables(char: CharClassTables, pair: PairTable, vocab: VocabTable,

@@ -21,7 +21,7 @@ consumed symbol is EOF.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -90,6 +90,11 @@ class ScanTables:
     @property
     def cont_class(self) -> int:
         return self.n_classes + 1
+
+    def to(self, device: torch.device) -> "ScanTables":
+        """A copy of the tables on ``device``."""
+        return replace(self, page_entry=self.page_entry.to(device),
+                       mixed_rows=self.mixed_rows.to(device), consts=self.consts.to(device))
 
 
 def scan_tables(tables: CharClassTables, consts: np.ndarray,

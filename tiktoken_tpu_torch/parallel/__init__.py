@@ -1,0 +1,22 @@
+"""Several devices: the device list, sharded corpus encoding, and the
+distributed pair-count training step.
+
+The counterpart of the JAX package's ``tiktoken_tpu.parallel``: a mesh is
+a list of ``torch.device`` (``data_mesh``), the tables are replicated per
+device, the forward pass is collective-free with counters summed on the
+host, and the training step sums its histograms over the devices and,
+given a ``torch.distributed`` process group, over the processes.
+"""
+
+from tiktoken_tpu_torch.parallel.encode import CorpusStats, ShardedEngine
+from tiktoken_tpu_torch.parallel.mesh import data_mesh
+from tiktoken_tpu_torch.parallel.train import HIST_BITS, corpus_pair_counts, pair_count_step
+
+__all__ = [
+    "HIST_BITS",
+    "CorpusStats",
+    "ShardedEngine",
+    "corpus_pair_counts",
+    "data_mesh",
+    "pair_count_step",
+]

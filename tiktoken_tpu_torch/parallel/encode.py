@@ -1,0 +1,175 @@
+"""Data-parallel corpus encoding over a list of devices.
+
+The counterpart of the JAX package's ``parallel/encode.py``, where one
+program runs on every chip of a mesh under ``shard_map``. Here the mesh is
+a list of devices (``parallel.mesh.data_mesh``): the engine's tables are
+replicated once per distinct device, each with its own ``TorchEngine``,
+and the host enqueues each device's share of rows on that device before it
+reads any result back, so the devices work at the same time. The forward
+pass stays collective-free, as in JAX: rows are independent, and the
+counters are summed on the host.
+
+- v3 (``encode_corpus3``): one self-contained chunk per device per
+  dispatch, ghost row included; when any header of a dispatch overflows
+  its caps, the dispatch's chunks re-run through the worst-case variant,
+  and a worst-case header that still overflows raises;
+- v2 (``encode_corpus(pipeline=2)``, ``encode_rows_tokens``): rows split
+  into per-device chunks; a chunk that overflows re-runs through its
+  device's v1 program;
+- v1 (``encode_rows``): every device runs the v1 program over its share of
+  the rows, with the counters as ``CorpusStats``.
+
+The v3 and v2 chunk loops are the single-device engine's own
+(``ops/engine.run_chunks3``, ``resolve_chunks2``), given the mesh's
+engines in place of one.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from tiktoken_tpu_torch.ops.engine import (
+    DEFAULT_CHUNK_ROWS,
+    MAX_K,
+    PackedBatch,
+    TorchEngine,
+    chunk_bytes3,
+    encode_corpus2_on,
+    encode_corpus3_on,
+    fetch_rows1,
+    quantize_chunk_rows,
+    resolve_chunks2,
+    split_rows,
+)
+from tiktoken_tpu_torch.ops.pipeline3 import K_DEFAULT, run_chunk
+
+
+@dataclass
+class CorpusStats:
+    """Counters of a sharded v1 run, summed over the devices."""
+
+    rows: int  # rows run, padding included
+    payload_bytes: int
+    tokens: int
+    fallback_rows: int
+    merge_rounds: int  # per device the most rounds of its chunks, summed
+
+
+class ShardedEngine:
+    """A ``TorchEngine`` spread over a list of devices.
+
+    Rows are split over ``mesh`` in order; the tables are copied once to
+    every distinct device of the list (a repeated device shares one
+    copy)."""
+
+    def __init__(self, engine: TorchEngine, mesh: Sequence[torch.device]):
+        if not mesh:
+            raise ValueError("the mesh holds no device")
+        self.engine = engine
+        self.mesh = [torch.device(d) for d in mesh]
+        self.n_devices = len(self.mesh)
+        self.engines: dict[torch.device, TorchEngine] = {engine.device: engine}
+        for dev in self.mesh:
+            if dev not in self.engines:
+                self.engines[dev] = TorchEngine(engine.tables.to(dev), engine.vocab_report,
+                                                engine.pat_str)
+        self.stats = {"rows": 0, "chunks": 0, "worst_case_chunks": 0, "fallback_docs": 0,
+                      "v1_fallback_chunks": 0}
+        self.timing: dict[str, float] = {}
+
+    def _replicas(self, byte_level: bool = False) -> list[TorchEngine]:
+        """The engine of each mesh entry, in order; ``byte_level`` gives
+        each the byte-level scan table, compiled once by the source engine
+        and copied over."""
+        if byte_level:
+            table = self.engine.byte_tables().byte_scan
+            for dev, eng in self.engines.items():
+                if eng.tables.byte_scan is None:
+                    eng.tables.byte_scan = table.to(dev)
+        return [self.engines[dev] for dev in self.mesh]
+
+    # -- v3 -------------------------------------------------------------------
+
+    def encode_corpus3(self, texts: Sequence[str] | Sequence[bytes], host_fallback=None,
+                       K: int | None = None, chunk_rows: int | None = None,
+                       as_numpy: bool = False):
+        """Handshake-packed encode over the mesh: each dispatch gives every
+        device one self-contained chunk of consecutive rows; byte-exact with
+        the host ``encode_ordinary``."""
+        return encode_corpus3_on(self._replicas(), texts, host_fallback, K, chunk_rows, as_numpy,
+                                 self.stats, self.timing)
+
+    def warmup(self, K: int | None = None, chunk_rows: int = DEFAULT_CHUNK_ROWS) -> None:
+        """Build the kernels and run one empty v3 chunk at the canonical
+        geometry on every distinct device."""
+        K = min(K or K_DEFAULT, MAX_K)
+        C = quantize_chunk_rows(chunk_rows, chunk_rows)
+        i32 = np.zeros(C, np.int32)
+        b1 = np.zeros(C, bool)
+        for eng in self.engines.values():
+            chunk = eng.upload([np.zeros(chunk_bytes3(K, C), np.uint8), i32, i32, i32, b1, b1, b1])
+            run_chunk(eng.tables, *chunk, K=K)[1].cpu()
+
+    # -- v2 and v1 ------------------------------------------------------------
+
+    def pad_batch(self, batch: PackedBatch) -> PackedBatch:
+        """Pad the row count to a multiple of the mesh size (empty rows of
+        document -1)."""
+        pad = (-batch.rows.shape[0]) % self.n_devices
+        if pad == 0:
+            return batch
+        KL = batch.rows.shape[1]
+        return replace(
+            batch,
+            rows=np.concatenate([batch.rows, np.zeros((pad, KL), np.uint8)]),
+            n_payload=np.concatenate([batch.n_payload, np.zeros(pad, np.int32)]),
+            n_total=np.concatenate([batch.n_total, np.zeros(pad, np.int32)]),
+            doc_index=np.concatenate([batch.doc_index, np.full(pad, -1, np.int32)]),
+        )
+
+    def encode_rows(self, batch: PackedBatch, chunk_rows: int = DEFAULT_CHUNK_ROWS):
+        """The v1 program over the rows, split over the mesh: (packed [B, K]
+        uint32, counts [B] int32, row_bad [B] bool, CorpusStats), padding
+        rows stripped."""
+        B0 = batch.rows.shape[0]
+        batch = self.pad_batch(batch)
+        per = batch.rows.shape[0] // self.n_devices
+        shares = [replace(batch, rows=batch.rows[sl], n_payload=batch.n_payload[sl],
+                          n_total=batch.n_total[sl], doc_index=batch.doc_index[sl])
+                  for sl in (slice(d * per, (d + 1) * per) for d in range(self.n_devices))]
+        pending = [eng.enqueue_rows1(share, chunk_rows)
+                   for eng, share in zip(self._replicas(byte_level=True), shares)]
+        outs = [fetch_rows1(p, share) for p, share in zip(pending, shares)]
+        packed, counts, row_bad = (np.concatenate([o[i] for o in outs]) for i in range(3))
+        stats = CorpusStats(rows=batch.rows.shape[0], payload_bytes=int(batch.n_payload.sum()),
+                            tokens=int(counts.sum()), fallback_rows=int(row_bad.sum()),
+                            merge_rounds=sum(o[3] for o in outs))
+        self.stats["rows"] += B0
+        return packed[:B0], counts[:B0], row_bad[:B0], stats
+
+    def encode_rows_tokens(self, batch: PackedBatch, chunk_rows: int = DEFAULT_CHUNK_ROWS):
+        """The v2 path over the mesh: (row_tokens, one uint32 array per row;
+        row_bad [B] bool). Each dispatch gives every device a chunk of
+        consecutive rows; a chunk that overflows a cap re-runs through its
+        device's v1 program."""
+        return split_rows(resolve_chunks2(self._replicas(byte_level=True), batch, chunk_rows,
+                                          self.stats, self.timing))
+
+    def encode_corpus(self, texts: Sequence[str] | Sequence[bytes], host_fallback=None,
+                      row_capacity: int | None = None, chunk_rows: int | None = None,
+                      pipeline: int = 3, as_numpy: bool = False):
+        """Encode documents over the mesh; byte-exact with the host
+        ``encode_ordinary``. ``pipeline`` as in ``Encoding.encode_corpus``:
+        3 (the default) runs ``encode_corpus3``, 2 the v2 program over rows
+        of ``row_capacity`` bytes cut at safe split points."""
+        if pipeline not in (2, 3):
+            raise ValueError(f"pipeline must be 2 or 3, got {pipeline!r}")
+        if pipeline == 3:
+            return self.encode_corpus3(texts, host_fallback=host_fallback, K=row_capacity,
+                                       chunk_rows=chunk_rows, as_numpy=as_numpy)
+        return encode_corpus2_on(self._replicas(byte_level=True), texts, host_fallback,
+                                 row_capacity, chunk_rows, as_numpy, self.stats, self.timing)
