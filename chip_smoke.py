@@ -15,24 +15,29 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    same inputs (integers, so exact equality), timed with CUDA events;
    then the whole chunk program with the kernels and with the plain
    versions;
-4b. the same on one real v2 chunk at C=32768 rows, K=256 (the byte-level
-   scan table compiled and uploaded first): every entry point of
-   ``run_chunk2`` and of the v1 ``run_rows1`` on those rows against its
-   plain version, then both programs with the kernels against plain;
+4b. the same on one real v2 chunk at C=32768 rows, K=256: every entry
+   point of ``run_chunk2`` under the char scanner (``tt_char_scan``), the
+   byte scanner's ``tt_seq_scan`` (the byte-level scan table compiled and
+   uploaded first) and every entry of the v1 ``run_rows1`` on those rows
+   against its plain version, then the three programs with the kernels
+   against plain (a chunk over the char scanner's non-ASCII cap is held
+   by its header only, and the rows over the cap are counted); a row too
+   long for ``tt_char_scan``'s shared memory is refused before launch;
 5. the v3 main path: ``Encoding.encode_corpus_to_numpy`` over the corpus
    on ``cuda``, with every kernel's launch count read around it;
-5b. the v2 main path: the same call with ``pipeline=2``, then a small
-   ``pipeline=2`` call of random words whose chunk overflows v2's
-   short-miss cap and re-runs through v1, each with the launch counts
-   read around it;
+5b. the v2 main path: the same call with ``pipeline=2`` (the char
+   scanner), again with ``scanner="byte"``, then a small ``pipeline=2``
+   call of random words whose chunk overflows v2's short-miss cap and
+   re-runs through v1, each with the launch counts read around it (the
+   char route must launch ``tt_char_scan`` and no ``tt_seq_scan``);
 6. every document decodes back to its bytes; the edge documents and four
    1 MB documents equal the host ``encode_ordinary``;
-6b. the v2 ids equal the v3 ids over the whole corpus, and the overflow
-   call's ids equal ``encode_ordinary``;
+6b. the v2 ids under both scanners equal the v3 ids over the whole
+   corpus, and the overflow call's ids equal ``encode_ordinary``;
 7. the sharded engine (``tiktoken_tpu_torch.parallel``): ``encode_corpus3``
    over every visible GPU and over a 2-way split of one card, each equal
    to phase 5's ids document for document and with phase 5's count of host
-   fallbacks; a sharded ``pipeline=2`` call
+   fallbacks; a sharded ``pipeline=2`` call (char scanner)
    of the random words that re-runs chunks through v1 and equals
    ``encode_ordinary``; sharded ``encode_rows`` over those rows, equal to
    the single-device v1 rows, with its ``CorpusStats`` checked;
@@ -70,7 +75,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT32_OPS_PER_S = 67e12  # float32 non-tensor rate, as the 32-bit ALU proxy
 KERNEL_OF = {
     "pair_hist": "pair_count", "hist_argmax": "pair_count",
-    "scan_rows": "scan_rows", "scan_validate": "scan_rows",
+    "scan_rows": "scan_rows", "scan_validate": "scan_rows", "char_scan": "scan_rows",
     "catalog": "compaction", "compact": "compaction", "compact_rows": "compaction",
     "route_right": "compaction", "expand_tokens": "compaction", "catalog2": "compaction",
     "extract_slots": "compaction", "expand_tokens_rows": "compaction",
@@ -81,7 +86,8 @@ KERNEL_OF = {
 }
 REPLACES = {
     "scan_rows": "tiktoken_tpu/ops/sweep_scan.py:233; tiktoken_tpu/ops/charclass.py:215; "
-                 "tiktoken_tpu/ops/pipeline3.py:306; tiktoken_tpu/ops/pipeline3.py:410",
+                 "tiktoken_tpu/ops/pipeline3.py:306; tiktoken_tpu/ops/pipeline3.py:410; "
+                 "tiktoken_tpu/ops/pipeline2.py:86",
     "compaction": "tiktoken_tpu/ops/compaction.py:78; tiktoken_tpu/ops/compaction.py:164; "
                   "tiktoken_tpu/ops/pipeline3.py:327; tiktoken_tpu/ops/pieces.py:288; "
                   "tiktoken_tpu/ops/pieces.py:317; tiktoken_tpu/ops/pipeline2.py:104",
@@ -95,7 +101,8 @@ REPLACES = {
 JAX_FUNCTIONS = {
     "scan_rows": ["pipeline3.row_gather", "charclass.make_byte_classes_fn",
                   "sweep_scan.make_char_scan_fn(handshake=True)",
-                  "pipeline3 handshake validation"],
+                  "pipeline3 handshake validation",
+                  "sweep_scan.make_char_scan_fn(handshake=False)"],
     "compaction": ["compaction.compact", "compaction.expand", "pipeline3.route_right",
                    "pipeline3 catalog lengths, too-long flags and word padding",
                    "pipeline3 slot prefix sums and token fetch",
@@ -111,11 +118,12 @@ JAX_FUNCTIONS = {
 # which kernels each path must launch
 PATH_KERNELS = {
     "v3": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
-    "v2": ("byte_scan", "compaction", "vocab_hit", "slot_merge"),
-    "v2_overflow": ("byte_scan", "grid_merge"),
+    "v2": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
+    "v2_byte": ("byte_scan", "compaction", "vocab_hit", "slot_merge"),
+    "v2_overflow": ("scan_rows", "byte_scan", "grid_merge"),
     "sharded_v3": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
     "sharded_v3_2way": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
-    "sharded_v2": ("byte_scan", "compaction", "grid_merge"),
+    "sharded_v2": ("scan_rows", "byte_scan", "compaction", "grid_merge"),
     "train": ("pair_count",),
 }
 
@@ -318,6 +326,15 @@ def work_of(name, args, out) -> tuple[int, int]:
         C, KL = rows.shape
         moved = (nbytes([flat, row_off, n_payload, n_total, is_doc_end, t.page_entry,
                          t.mixed_rows, t.consts, rows, spec_f]) + 1)  # + na_overflow
+        ops = C * KL + int(n_payload.clamp(min=0).sum())  # classify + >= 1 step per byte
+    elif name == "char_scan":
+        # the rows and two row vectors in, the tables once; the mask,
+        # row_bad and one na_over flag per row out
+        t, rows, n_payload, n_total = args
+        mask, row_bad = outs[:2]
+        C, KL = rows.shape
+        moved = nbytes([rows, n_payload, n_total, t.page_entry, t.mixed_rows, t.consts, mask,
+                        row_bad]) + C
         ops = C * KL + int(n_payload.clamp(min=0).sum())  # classify + >= 1 step per byte
     elif name == "scan_validate":
         prev_same_doc, emit = args[4], args[5]
@@ -599,20 +616,42 @@ def measure(calls, per: dict, program: str) -> None:
                                f"(max abs err {e['max_abs_err']})")
 
 
+def na_rows(rows: torch.Tensor, n_total: torch.Tensor, cap: int) -> int:
+    """Rows with more than ``cap`` non-ASCII char ends before n_total (the
+    UTF-8 rule of ``charclass.byte_classes``)."""
+    b = rows.to(torch.int64)
+    z = torch.zeros_like(b[:, :1])
+    prev = [b]
+    for _ in range(3):
+        prev.append(torch.cat([z, prev[-1][:, :-1]], dim=1))
+    cont = [(x & 0xC0) == 0x80 for x in prev]
+    k = torch.where(cont[0], torch.where(cont[1], torch.where(cont[2], torch.where(
+        cont[3], 4, 3), 2), 1), 0)
+    lead = torch.gather(torch.stack(prev + [z.expand_as(b)], dim=2), 2, k[:, :, None])[:, :, 0]
+    explen = torch.where(lead < 0x80, 1, torch.where((lead >= 0xC2) & (lead <= 0xDF), 2,
+                         torch.where((lead >= 0xE0) & (lead <= 0xEF), 3,
+                                     torch.where((lead >= 0xF0) & (lead <= 0xF4), 4, 0))))
+    pos = torch.arange(b.shape[1], device=b.device)[None, :]
+    na = (explen == k + 1) & cont[0] & (pos < n_total[:, None])
+    return int((na.sum(dim=1) > cap).sum())
+
+
 def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
-    """Phase 4b: one real v2 chunk (C rows of K=256) through run_chunk2 and
-    the v1 run_rows1, with the kernels against the plain versions, every
-    call recorded."""
+    """Phase 4b: one real v2 chunk (C rows of K=256) through run_chunk2
+    under the char scanner and the byte scanner (the byte-level scan table
+    compiled and uploaded first), and through the v1 run_rows1, with the
+    kernels against the plain versions, every call recorded. Under the
+    char scanner the chunk may overflow the non-ASCII cap: its header and
+    entry points are still held against plain, its tokens are not (an
+    overflowing chunk's stream is discarded and re-run through v1).
+    Returns (the char route's calls, the byte route's seq_scan call, the v1
+    calls, and the chunk ms of the char route, the byte route and v1)."""
     from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops.charclass import na_cap
     from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, pack_documents
-    from tiktoken_tpu_torch.ops.pipeline2 import run_chunk2, run_rows1
+    from tiktoken_tpu_torch.ops.pipeline2 import NA_FRAC, run_chunk2, run_rows1
 
     eng = enc.engine(device)
-    t0 = time.perf_counter()
-    tables = eng.byte_tables()
-    torch.cuda.synchronize()
-    log(f"byte-level scan table {tuple(tables.byte_scan.shape)} compiled and uploaded in "
-        f"{time.perf_counter() - t0:.1f} s")
     sel, rows_n = [], 0
     for d in docs:
         if rows_n >= C:
@@ -623,30 +662,72 @@ def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
     if batch.rows.shape[0] < C:
         raise RuntimeError(f"the v2 kernel-phase chunk has {batch.rows.shape[0]} rows, want {C}")
     rows, pay, tot = eng.upload([batch.rows[:C], batch.n_payload[:C], batch.n_total[:C]])
+    KL = rows.shape[1]
 
+    # the char route (the default)
+    t = eng.tables
     calls: list = []
-    tok_k, hdr_k = run_chunk2(tables, rows, pay, tot, ops=recording_ops(kernels.KERNEL_OPS, calls))
-    tok_p, hdr_p = run_chunk2(tables, rows, pay, tot, ops=kernels.PLAIN_OPS)
+    tok_k, hdr_k = run_chunk2(t, rows, pay, tot, ops=recording_ops(kernels.KERNEL_OPS, calls))
+    tok_p, hdr_p = run_chunk2(t, rows, pay, tot, ops=kernels.PLAIN_OPS)
     hk = hdr_k.cpu().numpy()
     nt = int(hk[-2])
-    if not (torch.equal(hdr_k, hdr_p) and torch.equal(tok_k[:nt], tok_p[:nt])):
-        raise RuntimeError("v2 chunk program: kernels and plain versions disagree")
+    if not torch.equal(hdr_k, hdr_p):
+        raise RuntimeError("v2 chunk program (char): kernels and plain versions disagree on the "
+                           "header")
+    over_cap = na_rows(rows, tot, na_cap(KL, NA_FRAC))
     if hk[-1]:
-        raise RuntimeError("the v2 kernel-phase chunk overflowed its caps")
+        log(f"v2 chunk (char) overflowed: {over_cap} rows over the non-ASCII cap of "
+            f"{na_cap(KL, NA_FRAC)} char ends; headers equal, tokens not compared")
+    elif not torch.equal(tok_k[:nt], tok_p[:nt]):
+        raise RuntimeError("v2 chunk program (char): kernels and plain versions disagree")
+    try:
+        big = torch.zeros((4, 2048 + 16), dtype=torch.uint8, device=rows.device)
+        z = torch.zeros(4, dtype=torch.int32, device=rows.device)
+        kernels.char_scan(t.scan, big, z, z, K=2048, na_frac=NA_FRAC)
+    except ValueError as e:
+        log(f"tt_char_scan refuses 2048-byte rows before any launch: {e}")
+    else:
+        raise RuntimeError("tt_char_scan took rows that do not fit its shared memory")
+
+    # the byte route
+    t0 = time.perf_counter()
+    tb = eng.byte_tables()
+    torch.cuda.synchronize()
+    log(f"byte-level scan table {tuple(tb.byte_scan.shape)} compiled and uploaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    calls_b: list = []
+    tok_kb, hdr_kb = run_chunk2(tb, rows, pay, tot, scanner="byte",
+                                ops=recording_ops(kernels.KERNEL_OPS, calls_b))
+    tok_pb, hdr_pb = run_chunk2(tb, rows, pay, tot, scanner="byte", ops=kernels.PLAIN_OPS)
+    hb = hdr_kb.cpu().numpy()
+    ntb = int(hb[-2])
+    if not (torch.equal(hdr_kb, hdr_pb) and torch.equal(tok_kb[:ntb], tok_pb[:ntb])):
+        raise RuntimeError("v2 chunk program (byte): kernels and plain versions disagree")
+    if hb[-1]:
+        raise RuntimeError("the v2 kernel-phase chunk overflowed its caps (byte)")
+    if not hk[-1]:
+        same = np.array_equal(hk, hb) and torch.equal(tok_k[:nt], tok_kb[:nt])
+        log(f"v2 chunk program: char and byte scanners give equal headers and tokens: {same}")
+
     calls1: list = []
-    out_k = run_rows1(tables, rows, pay, tot, ops=recording_ops(kernels.KERNEL_OPS, calls1))
-    out_p = run_rows1(tables, rows, pay, tot, ops=kernels.PLAIN_OPS)
+    out_k = run_rows1(tb, rows, pay, tot, ops=recording_ops(kernels.KERNEL_OPS, calls1))
+    out_p = run_rows1(tb, rows, pay, tot, ops=kernels.PLAIN_OPS)
     for a, b, what in zip(out_k, out_p, ("packed", "counts", "rounds", "row_bad")):
         if not torch.equal(a, b):
             raise RuntimeError(f"v1 program: kernels and plain versions disagree on {what}")
-    chunk2_ms = gpu_ms(lambda: run_chunk2(tables, rows, pay, tot), reps=5)
-    rows1_ms = gpu_ms(lambda: run_rows1(tables, rows, pay, tot), reps=3)
-    log(f"v2 chunk program C={C} K={DEFAULT_ROW}: kernels == plain (n_tokens={nt}, "
-        f"row_bad={int(hk[C:2 * C].sum())}); device time with the kernels {chunk2_ms:.3f} ms")
+    chunk2_ms = gpu_ms(lambda: run_chunk2(t, rows, pay, tot), reps=5)
+    chunk2b_ms = gpu_ms(lambda: run_chunk2(tb, rows, pay, tot, scanner="byte"), reps=5)
+    rows1_ms = gpu_ms(lambda: run_rows1(tb, rows, pay, tot), reps=3)
+    log(f"v2 chunk program C={C} K={DEFAULT_ROW}, char scanner: kernels == plain (n_tokens={nt}, "
+        f"row_bad={int(hk[C:2 * C].sum())}, overflow={int(hk[-1])}, rows over the non-ASCII cap "
+        f"{over_cap}); device time with the kernels {chunk2_ms:.3f} ms")
+    log(f"v2 chunk program, byte scanner: kernels == plain (n_tokens={ntb}, "
+        f"row_bad={int(hb[C:2 * C].sum())}); device time with the kernels {chunk2b_ms:.3f} ms")
     log(f"v1 program on the same rows: kernels == plain (rounds={int(out_k[2])}, "
         f"tokens={int(out_k[1].sum())}, row_bad={int(out_k[3].sum())}); device time with the "
         f"kernels {rows1_ms:.3f} ms")
-    return calls, calls1, chunk2_ms, rows1_ms
+    seq = [c for c in calls_b if c[0] == "seq_scan"]  # the rest repeats the char route's entries
+    return calls, seq, calls1, (chunk2_ms, chunk2b_ms, rows1_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -700,10 +781,11 @@ def main() -> int:
     measure(calls3, per, "v3")
     phase_s = {"4": time.perf_counter() - t0}
 
-    # ---- 4b: the same on a v2 chunk and its v1 re-run -------------------------
+    # ---- 4b: the same on a v2 chunk under both scanners and its v1 re-run -----
     t0 = time.perf_counter()
-    calls2, calls1, chunk2_ms, rows1_ms = kernel_phase2(enc, docs)
+    calls2, calls2b, calls1, (chunk2_ms, chunk2b_ms, rows1_ms) = kernel_phase2(enc, docs)
     measure(calls2, per, "v2")
+    measure(calls2b, per, "v2_byte")
     measure(calls1, per, "v1")
     phase_s["4b"] = time.perf_counter() - t0
 
@@ -723,16 +805,21 @@ def main() -> int:
                            "nor the host fallback")
     phase_s["5"] = time.perf_counter() - t0
 
-    # ---- 5b: the v2 main path, then a chunk that overflows into v1 ------------
+    # ---- 5b: the v2 main path under both scanners, then a chunk that ---------
+    # ---- overflows into v1 ---------------------------------------------------
     t0 = time.perf_counter()
-    v2, run2, secs2 = drive(enc, eng, all_docs, "v2", launches, pipeline=2)
-    tokens2, offsets2 = v2
-    log(f"v2 main path: {total_bytes / secs2 / 1e6:.2f} MB/s ({secs2:.2f} s, {len(tokens2)} "
-        f"tokens); chunks {run2['chunks']}, v1 re-runs {run2['v1_fallback_chunks']}, "
-        f"fallback documents {run2['fallback_docs']}")
-    busy2 = (run2["chunks"] * chunk2_ms + run2["v1_fallback_chunks"] * rows1_ms) / 1e3
-    log(f"device busy share of the v2 main path: about {busy2 / secs2:.3f} "
-        f"({run2['chunks']} chunk programs x {chunk2_ms:.3f} ms)")
+    v2_runs = {}
+    for path, scanner, c_ms in (("v2", "char", chunk2_ms), ("v2_byte", "byte", chunk2b_ms)):
+        (toks, offs), run2, secs2 = drive(enc, eng, all_docs, path, launches, pipeline=2,
+                                          scanner=scanner)
+        v2_runs[path] = (toks, offs)
+        log(f"{path} main path ({scanner} scanner): {total_bytes / secs2 / 1e6:.2f} MB/s "
+            f"({secs2:.2f} s, {len(toks)} tokens); chunks {run2['chunks']}, v1 re-runs "
+            f"{run2['v1_fallback_chunks']}, fallback documents {run2['fallback_docs']}")
+        busy2 = (run2["chunks"] * c_ms + run2["v1_fallback_chunks"] * rows1_ms) / 1e3
+        log(f"device busy share of the {path} main path: about {busy2 / secs2:.3f} "
+            f"({run2['chunks']} chunk programs x {c_ms:.3f} ms + {run2['v1_fallback_chunks']} "
+            f"v1 programs x {rows1_ms:.3f} ms)")
     words = [random_words(400_000, seed=11)]
     words_bytes = len(words[0])
     vo, run_o, secs_o = drive(enc, eng, words, "v2_overflow", launches, pipeline=2)
@@ -741,10 +828,14 @@ def main() -> int:
         f"{run_o['fallback_docs']}")
     if run_o["v1_fallback_chunks"] <= 0:
         raise RuntimeError("the overflow call did not re-run a chunk through v1")
-    for path, entry in (("v2", "tt_seq_scan"), ("v2_overflow", "tt_window_scan"),
+    for path, entry in (("v2", "tt_char_scan"), ("v2_byte", "tt_seq_scan"),
+                        ("v2_overflow", "tt_char_scan"), ("v2_overflow", "tt_window_scan"),
                         ("v2_overflow", "tt_orbit"), ("v2_overflow", "tt_grid_merge")):
         if launches[path]["entries"].get(entry, 0) <= 0:
             raise RuntimeError(f"{entry} was not launched on the {path} path")
+    for path in ("v2", "v2_overflow"):
+        if launches[path]["entries"].get("tt_seq_scan", 0):
+            raise RuntimeError(f"the {path} path (char scanner) launched tt_seq_scan")
     phase_s["5b"] = time.perf_counter() - t0
 
     # ---- 6: correctness ----------------------------------------------------
@@ -761,17 +852,19 @@ def main() -> int:
         f"documents equal the host encoder ({time.perf_counter() - t0:.1f} s)")
     phase_s["6"] = time.perf_counter() - t0
 
-    # ---- 6b: v2 against v3 and the host encoder -------------------------------
+    # ---- 6b: both v2 routes against v3 and the host encoder --------------------
     t0 = time.perf_counter()
-    if not (np.array_equal(offsets2, offsets) and np.array_equal(tokens2, tokens)):
-        bad = [i for i in range(len(all_docs))
-               if not np.array_equal(tokens2[offsets2[i] : offsets2[i + 1]],
-                                     tokens[offsets[i] : offsets[i + 1]])]
-        raise RuntimeError(f"v2 ids differ from v3 ids in documents {bad[:10]}")
+    for path, (tokens2, offsets2) in v2_runs.items():
+        if not (np.array_equal(offsets2, offsets) and np.array_equal(tokens2, tokens)):
+            bad = [i for i in range(len(all_docs))
+                   if not np.array_equal(tokens2[offsets2[i] : offsets2[i + 1]],
+                                         tokens[offsets[i] : offsets[i + 1]])]
+            raise RuntimeError(f"{path} ids differ from v3 ids in documents {bad[:10]}")
     if vo[0].tolist() != enc.encode_ordinary(words[0]):
         raise RuntimeError("the overflow call's ids differ from the host encoder")
-    log(f"correctness v2: {len(all_docs)} documents equal the v3 ids ({len(tokens2)} tokens); "
-        f"the overflow call equals the host encoder ({time.perf_counter() - t0:.1f} s)")
+    log(f"correctness v2: under both scanners {len(all_docs)} documents equal the v3 ids "
+        f"({len(tokens)} tokens); the overflow call equals the host encoder "
+        f"({time.perf_counter() - t0:.1f} s)")
     phase_s["6b"] = time.perf_counter() - t0
 
     # ---- 7: the sharded engine ----------------------------------------------
@@ -807,7 +900,7 @@ def main() -> int:
                 bound_ms=sum(x["bound_ms"] for x in e["entries"] if x["program"] == prog),
                 library_ms=sum(x["library_ms"] or 0.0 for x in e["entries"]
                                if x["program"] == prog) or None)
-                for prog in ("v3", "v2", "v1", "train")
+                for prog in ("v3", "v2", "v2_byte", "v1", "train")
                 if any(x["program"] == prog for x in e["entries"])},
         ))
     print(card)
@@ -839,12 +932,12 @@ def counted(path: str, launches: dict, fn):
     return out, secs
 
 
-def drive(enc, eng, texts, path: str, launches: dict, *, pipeline: int):
+def drive(enc, eng, texts, path: str, launches: dict, *, pipeline: int, scanner: str = "char"):
     """One main-path call of ``encode_corpus_to_numpy`` on ``cuda``, counted.
     Returns (result, stats delta, seconds)."""
     stats0 = dict(eng.stats)
     out, secs = counted(path, launches, lambda: enc.encode_corpus_to_numpy(
-        texts, device="cuda", pipeline=pipeline))
+        texts, device="cuda", pipeline=pipeline, scanner=scanner))
     log(f"{path} host-clock phases (s): " + ", ".join(
         f"{k}={v:.3f}" for k, v in eng.timing.items()))
     return out, {k: eng.stats[k] - stats0[k] for k in eng.stats}, secs
@@ -885,6 +978,8 @@ def sharded_phase(enc, eng, all_docs, tokens, offsets, fallback_docs: int, words
         raise RuntimeError("sharded pipeline=2: ids differ from the host encoder")
     if v1_runs <= 0:
         raise RuntimeError("sharded pipeline=2 did not re-run a chunk through v1")
+    if launches["sharded_v2"]["entries"].get("tt_char_scan", 0) <= 0:
+        raise RuntimeError("sharded pipeline=2 did not launch tt_char_scan")
     log(f"sharded_v2 over {len(mesh)} GPU(s): {len(words)} bytes of random words in "
         f"{secs:.2f} s, equal to the host encoder; {v1_runs} of {sharded.stats['chunks']} "
         f"chunks re-run through v1")

@@ -117,18 +117,34 @@ def test_uneven_rows_on_a_three_way_split(dry):
     assert [a.dtype for a in arrays] == [np.uint32] * 4 and [a.tolist() for a in arrays] == got
 
 
-def test_sharded_v2_reruns_overflowing_chunks_through_v1(dry):
+@pytest.mark.parametrize("scanner", ["byte", "char"])
+def test_sharded_v2_reruns_overflowing_chunks_through_v1(dry, scanner):
+    """Both v2 scanners over a 2-way split against the host encoder; the
+    char route also re-runs its chunk of CJK rows over the non-ASCII cap."""
+    from tiktoken_tpu_torch.ops.engine import pack_documents
     from tiktoken_tpu_torch.parallel import ShardedEngine, data_mesh
 
     enc, _docs, eng, *_ = dry
-    texts = [random_words(4000, seed=3), make_mixed_corpus(1500, seed=6)]
+    texts = [random_words(4000, seed=3), make_mixed_corpus(1500, seed=6), "hello world\n" * 200]
+    if scanner == "char":
+        texts.append("東京タワーは高い。パリは花の都、" * 40)
     sharded = ShardedEngine(eng, data_mesh(2, device="cpu"))
-    got = sharded.encode_corpus(texts, host_fallback=enc, pipeline=2, chunk_rows=8)
+    got = sharded.encode_corpus(texts, host_fallback=enc, pipeline=2, chunk_rows=8,
+                                scanner=scanner)
     assert got == [enc.encode_ordinary(t) for t in texts]
     assert sharded.stats["v1_fallback_chunks"] > 0
     assert sharded.stats["v1_fallback_chunks"] < sharded.stats["chunks"]  # not every chunk
     with pytest.raises(ValueError, match="pipeline must be 2 or 3"):
         sharded.encode_corpus(texts, pipeline=1)
+    with pytest.raises(ValueError, match="applies to pipeline=2 only"):
+        sharded.encode_corpus(texts, scanner="byte")
+    # row by row: each document's rows concatenate to its ids
+    batch = pack_documents([t.encode() for t in texts[:3]])
+    row_tokens, row_bad = sharded.encode_rows_tokens(batch, chunk_rows=8, scanner=scanner)
+    assert not row_bad.any()
+    for d, t in enumerate(texts[:3]):
+        rows = np.nonzero(batch.doc_index == d)[0]
+        assert np.concatenate([row_tokens[r] for r in rows]).tolist() == enc.encode_ordinary(t)
 
 
 @pytest.mark.parametrize("n", [1, 2])

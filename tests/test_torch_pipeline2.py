@@ -1,15 +1,18 @@
-"""PyTorch port: the v2 chunk program with the byte-level scanner, its v1
-re-run, and the v2 corpus path end to end.
+"""PyTorch port: the v2 chunk program under both scanners, its v1 re-run,
+and the v2 corpus path end to end.
 
 ``run_chunk2`` (the CPU path of its kernels) against the JAX
-``build_pipeline2_fn(char_tables=None, pack24=False)`` and ``run_rows1``
-against the JAX ``build_pipeline_fn``, on the same ``pack_documents``
-rows and on tables carried across with ``convert.tables_from_numpy``:
-the header and ``flat_tok[:n_tokens]`` are equal (tokens only when the
-chunk did not overflow: an overflowing chunk's stream is discarded and
-re-run through v1), and v1's packed rows, counts, rounds and row flags
-are equal. ``Encoding.encode_corpus(..., device="cpu", pipeline=2)``
-equals the reference ``tiktoken``."""
+``build_pipeline2_fn(pack24=False)``, with the char-level scanner
+(``char_tables`` given, ``scanner="char"``) and with the byte-level one
+(``char_tables=None``, ``scanner="byte"``), and ``run_rows1`` against the
+JAX ``build_pipeline_fn``, on the same ``pack_documents`` rows and on
+tables carried across with ``convert.tables_from_numpy``: the header and
+``flat_tok[:n_tokens]`` are equal (tokens only when the chunk did not
+overflow: an overflowing chunk's stream is discarded and re-run through
+v1), and v1's packed rows, counts, rounds and row flags are equal.
+``Encoding.encode_corpus(..., device="cpu", pipeline=2)`` equals the
+reference ``tiktoken`` under both scanners, and the port's
+``encode_rows_tokens`` equals the JAX ``DeviceEngine``'s row by row."""
 
 from __future__ import annotations
 
@@ -41,32 +44,44 @@ def random_words(n_chars: int, seed: int) -> str:
     return " ".join(out)
 
 
-@pytest.fixture(scope="module")
-def setup():
+@pytest.fixture(scope="module", params=["byte", "char"])
+def setup(request):
+    """(scanner, the JAX v2 program and its tables, the JAX v1 program and
+    its tables (byte case only: v1 is the same program under both), the
+    port's tables)."""
     import jax.numpy as jnp
 
+    from tiktoken_tpu.ops.charclass import prepare_device_tables
     from tiktoken_tpu.ops.engine import build_pipeline_fn
     from tiktoken_tpu.ops.pipeline2 import build_pipeline2_fn
     from tiktoken_tpu.ops.window_scan import expand_packed_to_bytes, pack_trans_accept
 
     from tiktoken_tpu_torch.convert import tables_from_numpy
 
+    scanner = request.param
     eng = make_encoding("o200k", 800).device_engine
     dfa, ct = eng.dfa, eng.char_tables
     pt, vt, lvt = eng.pair_table, eng.vocab_table, eng.long_vocab_table
     fn2 = jax.jit(build_pipeline2_fn(
         row_total=KL, look=16, pair_seed=pt.seed, pair_buckets=pt.n_buckets,
         vocab_seed=vt.seed, vocab_buckets=vt.n_buckets, long_seed=lvt.seed,
-        long_buckets=lvt.n_buckets, B=C, pack24=False, char_tables=None))
+        long_buckets=lvt.n_buckets, B=C, pack24=False,
+        char_tables=ct if scanner == "char" else None))
     packed = pack_trans_accept(dfa.trans, dfa.accept)
-    args2 = (jnp.asarray(expand_packed_to_bytes(packed, dfa.class_of)),
-             jnp.asarray(pt.buckets), jnp.asarray(pt.byte_to_rank),
+    if scanner == "char":
+        prep = prepare_device_tables(ct)
+        scan2 = (jnp.asarray(prep["page_planes"]), jnp.asarray(prep["mixed_t"]))
+    else:
+        scan2 = jnp.asarray(expand_packed_to_bytes(packed, dfa.class_of))
+    args2 = (scan2, jnp.asarray(pt.buckets), jnp.asarray(pt.byte_to_rank),
              (jnp.asarray(vt.buckets), jnp.asarray(lvt.buckets)))
-    fn1 = jax.jit(build_pipeline_fn(
-        row_total=KL, window=48, n_states=dfa.n_states, n_classes=dfa.n_classes,
-        eof_cls=int(dfa.class_of[256]), pair_seed=pt.seed, pair_buckets=pt.n_buckets))
-    args1 = (jnp.asarray(packed), jnp.asarray(dfa.class_of.astype(np.int32)),
-             jnp.asarray(pt.buckets), jnp.asarray(pt.byte_to_rank))
+    fn1 = args1 = None
+    if scanner == "byte":
+        fn1 = jax.jit(build_pipeline_fn(
+            row_total=KL, window=48, n_states=dfa.n_states, n_classes=dfa.n_classes,
+            eof_cls=int(dfa.class_of[256]), pair_seed=pt.seed, pair_buckets=pt.n_buckets))
+        args1 = (jnp.asarray(packed), jnp.asarray(dfa.class_of.astype(np.int32)),
+                 jnp.asarray(pt.buckets), jnp.asarray(pt.byte_to_rank))
     arrays = dict(page_entry=ct.page_entry, mixed_rows=ct.mixed_rows, trans=ct.trans,
                   accept=ct.accept, pair_buckets=pt.buckets, byte_to_rank=pt.byte_to_rank,
                   vocab_buckets=vt.buckets, long_buckets=lvt.buckets, byte_trans=dfa.trans,
@@ -74,7 +89,7 @@ def setup():
     meta = dict(n_classes=ct.n_classes, eof_class=ct.eof_class, n_states=ct.n_states,
                 pair_seed=pt.seed, n_vocab=pt.n_vocab, vocab_seed=vt.seed, long_seed=lvt.seed,
                 byte_n_states=dfa.n_states, byte_n_classes=dfa.n_classes)
-    return fn2, args2, fn1, args1, tables_from_numpy(arrays, meta, device="cpu")
+    return scanner, fn2, args2, fn1, args1, tables_from_numpy(arrays, meta, device="cpu")
 
 
 def _compare(setup, texts, want_overflow: bool):
@@ -83,7 +98,7 @@ def _compare(setup, texts, want_overflow: bool):
     from tiktoken_tpu_torch.ops.engine import pack_documents
     from tiktoken_tpu_torch.ops.pipeline2 import run_chunk2, run_rows1
 
-    fn2, args2, fn1, args1, tables = setup
+    scanner, fn2, args2, fn1, args1, tables = setup
     docs = [t.encode() for t in texts]
     jb, pb = jpack(docs, K), pack_documents(docs, K)
     for f in ("rows", "n_payload", "n_total", "doc_index"):
@@ -96,7 +111,8 @@ def _compare(setup, texts, want_overflow: bool):
         n = min(C, pb.rows.shape[0] - lo)
         rows[:n], pay[:n], tot[:n] = (a[lo : lo + n] for a in (pb.rows, pb.n_payload, pb.n_total))
         jt, jh = (np.asarray(x) for x in fn2(*args2, rows, pay, tot))
-        tt, th = run_chunk2(tables, *(torch.from_numpy(x) for x in (rows, pay, tot)))
+        tt, th = run_chunk2(tables, *(torch.from_numpy(x) for x in (rows, pay, tot)),
+                            scanner=scanner)
         th, tt = th.numpy(), tt.numpy().view(np.uint32)
         assert th.shape == (2 * C + 2,)
         np.testing.assert_array_equal(th, jh, err_msg=f"header lo={lo}")
@@ -104,6 +120,8 @@ def _compare(setup, texts, want_overflow: bool):
         if not th[-1]:
             nt = int(jh[-2])
             np.testing.assert_array_equal(tt[:nt], jt[:nt], err_msg=f"tokens lo={lo}")
+        if fn1 is None:
+            continue
         # v1 on the same rows
         jp, jc, jr, jbad = (np.asarray(x) for x in fn1(*args1, rows, pay, tot))
         pp, pc, pr, pbad = run_rows1(tables, *(torch.from_numpy(x) for x in (rows, pay, tot)))
@@ -115,7 +133,10 @@ def _compare(setup, texts, want_overflow: bool):
 
 
 def test_mixed_corpus(setup):
-    _compare(setup, [make_mixed_corpus(2500, seed=s) for s in range(2)], want_overflow=False)
+    # under the char scanner, rows dense in the corpus's non-Latin words
+    # exceed the non-ASCII cap: those chunks overflow, as in JAX
+    _compare(setup, [make_mixed_corpus(2500, seed=s) for s in range(2)],
+             want_overflow=setup[0] == "char")
 
 
 def test_short_miss_overflow(setup):
@@ -129,10 +150,11 @@ def test_piece_and_token_overflow(setup):
 
 
 def test_long_pieces_and_fallback_rows(setup):
-    # >64-byte pieces flag their rows; 17..64-byte pieces take the long path
+    # >64-byte pieces flag their rows; 17..64-byte pieces take the long path;
+    # under the char scanner the CJK rows exceed the non-ASCII cap
     _compare(setup, ["x" * 700, "ab" + "c" * 500, "0" * 997, "word" * 12 + " " + "z" * 40,
                      "a\n b", "today\n \n", "🌍🌍🌍 emoji soup 🚀", CJK * 3],
-             want_overflow=False)
+             want_overflow=setup[0] == "char")
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +173,9 @@ def enc():
     )
 
 
+@pytest.mark.parametrize("scanner", ["char", "byte"])
 @pytest.mark.parametrize("corpus", ["mixed", "scripts", "long_runs", "degenerate", "overflow"])
-def test_encode_corpus_v2_matches_tiktoken(enc, corpus):
+def test_encode_corpus_v2_matches_tiktoken(enc, corpus, scanner):
     texts = {
         "mixed": [make_mixed_corpus(4000, seed=s) for s in range(3)] + ["", "x", "hello world!"],
         "scripts": [CJK * 20, CYR * 10, CJK[:30] + " and ascii words " + CYR[:40]],
@@ -163,15 +186,18 @@ def test_encode_corpus_v2_matches_tiktoken(enc, corpus):
     }[corpus]
     eng = enc.engine("cpu")
     before = dict(eng.stats)
-    got = enc.encode_corpus(texts, device="cpu", pipeline=2, chunk_rows=8)
+    got = enc.encode_corpus(texts, device="cpu", pipeline=2, chunk_rows=8, scanner=scanner)
     oracle = make_oracle("o200k", 800)
     for i, t in enumerate(texts):
         assert got[i] == oracle.encode_ordinary(t), f"doc {i}"
-    if corpus == "overflow":  # the v1 re-run, loud and counted
+    # the v1 re-run, loud and counted: a short-miss cap overflow, or under
+    # the char scanner dense non-ASCII rows
+    if corpus == "overflow" or (corpus == "scripts" and scanner == "char"):
         assert eng.stats["v1_fallback_chunks"] > before["v1_fallback_chunks"]
     if corpus in ("scripts", "long_runs"):  # hard cuts, >64-byte pieces: host fallback
         assert eng.stats["fallback_docs"] > before["fallback_docs"]
-    tokens, offsets = enc.encode_corpus_to_numpy(texts, device="cpu", pipeline=2)
+    tokens, offsets = enc.encode_corpus_to_numpy(texts, device="cpu", pipeline=2,
+                                                 scanner=scanner)
     assert tokens.dtype == np.uint32
     for i in range(len(texts)):
         assert tokens[offsets[i] : offsets[i + 1]].tolist() == got[i]
@@ -180,6 +206,10 @@ def test_encode_corpus_v2_matches_tiktoken(enc, corpus):
 def test_pipeline_argument(enc, monkeypatch):
     with pytest.raises(ValueError, match="pipeline must be 2 or 3"):
         enc.encode_corpus(["hello"], device="cpu", pipeline=1)
+    with pytest.raises(ValueError, match="scanner must be 'char' or 'byte'"):
+        enc.encode_corpus(["hello"], device="cpu", pipeline=2, scanner="seq")
+    with pytest.raises(ValueError, match="scanner='byte' applies to pipeline=2 only"):
+        enc.encode_corpus_to_numpy(["hello"], device="cpu", scanner="byte")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         enc.encode_corpus(["hello world"], pipeline=2)
@@ -296,3 +326,44 @@ def test_encode_rows_tokens_and_v1_rows(enc):
         assert np.concatenate([packed[r, : counts[r]] for r in rows]).tolist() == \
             oracle.encode_ordinary(t)
     assert not bad1.any()
+
+
+def test_encode_rows_tokens_matches_jax_row_by_row(enc):
+    """The char route row by row against the JAX ``DeviceEngine`` (whose
+    default v2 scanner is the char-level one), at chunk_rows=8: the same
+    row tokens and row flags, and the same chunks re-run through v1 (a
+    short-miss overflow, and a chunk of CJK rows over the non-ASCII
+    cap)."""
+    from tiktoken_tpu.ops.engine import pack_documents as jax_pack
+
+    from tiktoken_tpu_torch.ops.engine import pack_documents
+
+    texts = [random_words(2000, seed=4), "hello world\n" * 200, CJK * 12,
+             make_mixed_corpus(1500, seed=9), "a\n b today\n \n"]
+    docs = [t.encode() for t in texts]
+    batch = pack_documents(docs)
+    jax_eng = make_encoding("o200k", 800).device_engine
+    assert jax_eng.char_tables is not None  # the JAX default v2 route
+    eng = enc.engine("cpu")
+    before, j_before = eng.stats["v1_fallback_chunks"], jax_eng.stats["v1_fallback_chunks"]
+    rows, bad = eng.encode_rows_tokens(batch, chunk_rows=8)
+    j_rows, j_bad = jax_eng.encode_rows_tokens(jax_pack(docs), chunk_rows=8)
+    assert len(rows) == len(j_rows) == batch.rows.shape[0]
+    for r, (a, b) in enumerate(zip(rows, j_rows)):
+        np.testing.assert_array_equal(a, np.asarray(b, np.uint32), err_msg=f"row {r}")
+    np.testing.assert_array_equal(bad, j_bad)
+    delta = eng.stats["v1_fallback_chunks"] - before
+    assert delta == jax_eng.stats["v1_fallback_chunks"] - j_before
+    assert 2 <= delta < -(-batch.rows.shape[0] // 8), delta  # some chunks, not all
+
+
+def test_replicas_copy_the_source_byte_table(enc):
+    """An engine built with ``byte_source`` takes that engine's byte-level
+    scan table when it first needs one, and compiles none of its own."""
+    from tiktoken_tpu_torch.ops.engine import TorchEngine
+
+    src = enc.engine("cpu")
+    replica = TorchEngine(src.tables.to(torch.device("cpu")), byte_source=src)
+    replica.tables.byte_scan = None
+    assert replica.pat_str is None  # nothing to compile from
+    assert torch.equal(replica.byte_tables().byte_scan, src.byte_tables().byte_scan)

@@ -5,7 +5,8 @@ The same constructor and method names as the reference library's
 ``decode`` / ``decode_bytes``, and the corpus encoder on the GPU
 (``encode_corpus`` / ``encode_corpus_to_numpy``), which runs on ``cuda``
 unless the caller passes ``device="cpu"``, through the v3 program
-(``pipeline=3``, the default) or the v2 one (``pipeline=2``).
+(``pipeline=3``, the default) or the v2 one (``pipeline=2``, with the
+char-level scanner, or the byte-level one with ``scanner="byte"``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from tiktoken_tpu_torch._pybpe import HostBPE
-from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, TorchEngine, resolve_device
+from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, TorchEngine, check_route, resolve_device
 
 
 class Encoding:
@@ -87,14 +88,14 @@ class Encoding:
             self._engines[dev] = eng
         return eng
 
-    def _encode_corpus(self, texts, device, row_capacity, chunk_rows, pipeline, as_numpy):
-        if pipeline not in (2, 3):
-            raise ValueError(f"pipeline must be 2 or 3, got {pipeline!r}")
+    def _encode_corpus(self, texts, device, row_capacity, chunk_rows, pipeline, scanner,
+                       as_numpy):
+        check_route(pipeline, scanner)
         eng = self.engine(device)
         if pipeline == 2:
             return eng.encode_corpus(texts, host_fallback=self._core_bpe,
                                      row_capacity=row_capacity or DEFAULT_ROW,
-                                     chunk_rows=chunk_rows, as_numpy=as_numpy)
+                                     chunk_rows=chunk_rows, as_numpy=as_numpy, scanner=scanner)
         return eng.encode_corpus3(texts, host_fallback=self._core_bpe, K=row_capacity,
                                   chunk_rows=chunk_rows, as_numpy=as_numpy)
 
@@ -106,18 +107,24 @@ class Encoding:
         row_capacity: int | None = None,
         chunk_rows: int | None = None,
         pipeline: int = 3,
+        scanner: str = "char",
     ) -> list[list[int]]:
         """Encode a batch of documents on ``device`` ("cuda" by default);
         byte-exact with ``encode_ordinary``.
 
         ``pipeline=3`` (the default) runs the v3 program: handshake rows
-        and the char-level scanner. ``pipeline=2`` runs the v2 program with
-        the byte-level sequential scanner over rows cut at safe split
-        points (``row_capacity`` bytes each, 256 by default), and re-runs a
-        chunk whose caps overflow through the v1 program: the JAX
-        package's ``TIKTOKEN_TPU_SCANNER=seq`` route. Its byte-level scan
-        table is compiled and uploaded at the first v2 call."""
-        return self._encode_corpus(texts, device, row_capacity, chunk_rows, pipeline, False)
+        and the char-level scanner. ``pipeline=2`` runs the v2 program
+        over rows cut at safe split points (``row_capacity`` bytes each,
+        256 by default), the JAX package's ``TIKTOKEN_TPU_PIPELINE=2``
+        route, and re-runs a chunk whose caps overflow through the v1
+        program. ``scanner`` applies to ``pipeline=2``: "char" (the
+        default) scans the rows with the char-level DFA, and a chunk with
+        dense non-ASCII rows overflows into v1; "byte" scans them with the
+        byte-level DFA, the JAX package's ``TIKTOKEN_TPU_SCANNER=seq``.
+        The byte-level scan table is compiled and uploaded at the first
+        call that needs it: the byte scanner, or a v1 re-run."""
+        return self._encode_corpus(texts, device, row_capacity, chunk_rows, pipeline, scanner,
+                                   False)
 
     def encode_corpus_to_numpy(
         self,
@@ -127,11 +134,13 @@ class Encoding:
         row_capacity: int | None = None,
         chunk_rows: int | None = None,
         pipeline: int = 3,
+        scanner: str = "char",
     ) -> tuple[np.ndarray, np.ndarray]:
         """``encode_corpus`` with array output: ``(tokens, offsets)``, where
         document ``i``'s ids are ``tokens[offsets[i]:offsets[i+1]]``
         (uint32 / int64)."""
-        per_doc = self._encode_corpus(texts, device, row_capacity, chunk_rows, pipeline, True)
+        per_doc = self._encode_corpus(texts, device, row_capacity, chunk_rows, pipeline, scanner,
+                                      True)
         offsets = np.zeros(len(per_doc) + 1, dtype=np.int64)
         np.cumsum([len(a) for a in per_doc], out=offsets[1:])
         tokens = (np.concatenate(per_doc).astype(np.uint32, copy=False)

@@ -6,19 +6,23 @@ on two of its paths:
 - v3 (``encode_corpus3``): documents packed into handshake rows, one
   ``ops/pipeline3.run_chunk`` per chunk, a chunk whose caps overflowed
   re-run through the ``worst_case`` variant;
-- v2 with the byte-level scanner (``encode_corpus``, the JAX package's
-  ``TIKTOKEN_TPU_SCANNER=seq`` route): documents cut at safe split points
+- v2 (``encode_corpus``): documents cut at safe split points
   (``pack_documents``), one ``ops/pipeline2.run_chunk2`` per chunk, a
   chunk whose caps overflowed re-run through the v1 program
-  (``run_rows1``), counted in ``stats["v1_fallback_chunks"]``.
+  (``run_rows1``), counted in ``stats["v1_fallback_chunks"]``. Its
+  scanner is the JAX package's: the char-level one by default
+  (``scanner="char"``, whose non-ASCII cap also sends a chunk to v1), the
+  byte-level one with ``scanner="byte"`` (JAX's
+  ``TIKTOKEN_TPU_SCANNER=seq``).
 
 The engine builds the tables once and uploads them to its device once;
-the byte-level scan table only at the first v2/v1 call, so the v3 path
-never pays for it. Both paths stitch the per-row token streams back into
-documents and hand documents the device could not finish exactly
-(``row_bad`` rows: handshake failures or unresolved scans, pieces over 64
-bytes, v2 hard cuts) to the host engine. Those fallbacks are counted in
-``stats["fallback_docs"]``; they are never silent.
+the byte-level scan table only when a call first needs it (the byte
+scanner, or a v1 re-run), so the v3 path and a v2 call that never
+overflows never pay for it. Both paths stitch the per-row token streams
+back into documents and hand documents the device could not finish
+exactly (``row_bad`` rows: handshake failures or unresolved scans,
+pieces over 64 bytes, v2 hard cuts) to the host engine. Those fallbacks
+are counted in ``stats["fallback_docs"]``; they are never silent.
 
 Chunk inputs go up as plain pinned-memory copies on the current CUDA
 stream; every chunk is enqueued before the first header is read back. The
@@ -57,7 +61,7 @@ from tiktoken_tpu_torch.ops.pipeline3 import (
     run_chunk,
     upload_tables,
 )
-from tiktoken_tpu_torch.ops.pipeline2 import DEFAULT_ROW, LOOK, run_chunk2, run_rows1
+from tiktoken_tpu_torch.ops.pipeline2 import DEFAULT_ROW, LOOK, SCANNERS, run_chunk2, run_rows1
 from tiktoken_tpu_torch.ops.regex_compiler import compile_pattern, compile_pattern_chars
 from tiktoken_tpu_torch.ops.window_scan import byte_scan_table
 
@@ -100,6 +104,17 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def check_route(pipeline: int, scanner: str) -> None:
+    """Raise on a corpus route that does not exist: ``pipeline`` 2 or 3;
+    ``scanner`` "char" or "byte", and "byte" only with ``pipeline=2``."""
+    if pipeline not in (2, 3):
+        raise ValueError(f"pipeline must be 2 or 3, got {pipeline!r}")
+    if scanner not in SCANNERS:
+        raise ValueError(f"scanner must be 'char' or 'byte', got {scanner!r}")
+    if scanner == "byte" and pipeline != 2:
+        raise ValueError("scanner='byte' applies to pipeline=2 only")
 
 
 def _find_safe_splits(data: np.ndarray) -> np.ndarray:
@@ -345,19 +360,21 @@ def run_chunks3(engines: Sequence["TorchEngine"], pc, chunk_rows: int, stats: di
 
 
 def resolve_chunks2(engines: Sequence["TorchEngine"], batch: PackedBatch, chunk_rows: int,
-                    stats: dict, timing: dict) -> list:
-    """Run the v2 program over every row of ``batch``, chunk i on
-    ``engines[i % n]``, all enqueued before the first header is read back.
-    Returns [(tokens uint32, row_counts [n], row_bad [n], n, first row)] per
-    chunk; a chunk whose caps overflowed re-runs through its engine's v1
-    program, counted in ``stats["v1_fallback_chunks"]``."""
+                    stats: dict, timing: dict, scanner: str = "char") -> list:
+    """Run the v2 program with ``scanner`` over every row of ``batch``,
+    chunk i on ``engines[i % n]``, all enqueued before the first header is
+    read back. Returns [(tokens uint32, row_counts [n], row_bad [n], n,
+    first row)] per chunk; a chunk whose caps overflowed re-runs through
+    its engine's v1 program, counted in ``stats["v1_fallback_chunks"]``."""
+    check_route(2, scanner)
     B = batch.rows.shape[0]
     C = quantize_chunk_rows(-(-B // len(engines)), chunk_rows)
     t0 = time.perf_counter()
     pending = []
     for lo, eng in zip(range(0, B, C), itertools.cycle(engines)):
         rows, pay, tot, n = eng.upload_rows(batch, lo, C)
-        pending.append((eng, n, lo, *run_chunk2(eng.byte_tables(), rows, pay, tot)))
+        tables = eng.byte_tables() if scanner == "byte" else eng.tables
+        pending.append((eng, n, lo, *run_chunk2(tables, rows, pay, tot, scanner=scanner)))
     t1 = time.perf_counter()
     timing["enqueue_s"] = t1 - t0
     results = []
@@ -411,10 +428,11 @@ def encode_corpus3_on(engines: Sequence["TorchEngine"], texts, host_fallback, K,
 
 
 def encode_corpus2_on(engines: Sequence["TorchEngine"], texts, host_fallback, row_capacity,
-                      chunk_rows, as_numpy: bool, stats: dict, timing: dict) -> list:
+                      chunk_rows, as_numpy: bool, stats: dict, timing: dict,
+                      scanner: str = "char") -> list:
     """The v2 corpus encoder over ``engines``: ``pack_documents``,
-    ``resolve_chunks2``, ``assemble``; ``timing`` is refilled for this
-    call."""
+    ``resolve_chunks2`` with ``scanner``, ``assemble``; ``timing`` is
+    refilled for this call."""
     docs = [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in texts]
     timing.clear()
     t0 = time.perf_counter()
@@ -422,7 +440,8 @@ def encode_corpus2_on(engines: Sequence["TorchEngine"], texts, host_fallback, ro
     timing["pack_s"] = time.perf_counter() - t0
     if batch.rows.shape[0] == 0:
         return [np.empty(0, np.uint32) if as_numpy else [] for _ in docs]
-    results = resolve_chunks2(engines, batch, chunk_rows or DEFAULT_CHUNK_ROWS, stats, timing)
+    results = resolve_chunks2(engines, batch, chunk_rows or DEFAULT_CHUNK_ROWS, stats, timing,
+                              scanner)
     return assemble(docs, batch.doc_index, results, set(batch.hard_cut_docs), host_fallback,
                     as_numpy, stats, timing)
 
@@ -432,11 +451,14 @@ class TorchEngine:
     and v2 corpus encoders over them."""
 
     def __init__(self, tables: ChunkTables, vocab_report: dict | None = None,
-                 pat_str: str | None = None):
+                 pat_str: str | None = None, byte_source: "TorchEngine | None" = None):
         self.tables = tables
         self.device = tables.device
         self.vocab_report = vocab_report
         self.pat_str = pat_str  # compiles the byte-level scan table on demand
+        # an engine of the same tables on another device: its byte-level
+        # scan table, compiled once, is copied here in place of compiling
+        self.byte_source = byte_source
         self.stats = {"rows": 0, "chunks": 0, "worst_case_chunks": 0, "fallback_docs": 0,
                       "v1_fallback_chunks": 0}
         # host-clock seconds of the last corpus call, by phase: pack (host
@@ -454,15 +476,18 @@ class TorchEngine:
         return TorchEngine(upload_tables(char, pair, vocab, long, dev), report, pat_str)
 
     def byte_tables(self) -> ChunkTables:
-        """The tables with the byte-level scan table of the v2/v1
-        programs, compiled from the pattern and uploaded at the first
-        call."""
+        """The tables with the byte-level scan table of the byte scanner
+        and the v1 program, at the first call copied from ``byte_source``
+        or compiled from the pattern, and uploaded."""
         if self.tables.byte_scan is None:
-            if self.pat_str is None:
+            if self.byte_source is not None:
+                table = self.byte_source.byte_tables().byte_scan
+            elif self.pat_str is not None:
+                table = torch.as_tensor(byte_scan_table(compile_pattern(self.pat_str)))
+            else:
                 raise ValueError("the engine has neither a byte-level scan table nor a "
                                  "pattern to compile one from")
-            table = byte_scan_table(compile_pattern(self.pat_str))
-            self.tables.byte_scan = torch.as_tensor(table, device=self.device)
+            self.tables.byte_scan = table.to(self.device)
         return self.tables
 
     def upload(self, arrays) -> list[torch.Tensor]:
@@ -484,7 +509,7 @@ class TorchEngine:
         return encode_corpus3_on([self], texts, host_fallback, K, chunk_rows, as_numpy,
                                  self.stats, self.timing)
 
-    # -- v2 (byte-level sequential scanner) and its v1 re-run -----------------
+    # -- v2 and its v1 re-run ---------------------------------------------------
 
     def upload_rows(self, batch: PackedBatch, lo: int, C: int):
         """Rows [lo, lo+C) of the batch, zero-padded to C, on the device;
@@ -518,17 +543,19 @@ class TorchEngine:
             outs.append((*run_rows1(t, rows, pay, tot), n))
         return outs
 
-    def encode_rows_tokens(self, batch: PackedBatch, chunk_rows: int = DEFAULT_CHUNK_ROWS):
+    def encode_rows_tokens(self, batch: PackedBatch, chunk_rows: int = DEFAULT_CHUNK_ROWS,
+                           scanner: str = "char"):
         """The v2 path row by row: (row_tokens, one uint32 array per row;
         row_bad [B] bool)."""
-        return split_rows(resolve_chunks2([self], batch, chunk_rows, self.stats, self.timing))
+        return split_rows(resolve_chunks2([self], batch, chunk_rows, self.stats, self.timing,
+                                          scanner))
 
     def encode_corpus(self, texts: Sequence[str] | Sequence[bytes], host_fallback=None,
                       row_capacity: int = DEFAULT_ROW, chunk_rows: int | None = None,
-                      as_numpy: bool = False):
+                      as_numpy: bool = False, scanner: str = "char"):
         """Encode documents on the engine's device through the v2 program
-        with the byte-level scanner (v1 for overflowing chunks), byte-exact
-        with the host ``encode_ordinary``. ``as_numpy=True`` returns
-        per-document uint32 arrays instead of lists of ints."""
+        with ``scanner`` ("char" or "byte"; v1 for overflowing chunks),
+        byte-exact with the host ``encode_ordinary``. ``as_numpy=True``
+        returns per-document uint32 arrays instead of lists of ints."""
         return encode_corpus2_on([self], texts, host_fallback, row_capacity, chunk_rows, as_numpy,
-                                 self.stats, self.timing)
+                                 self.stats, self.timing, scanner)

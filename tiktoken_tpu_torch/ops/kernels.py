@@ -6,7 +6,9 @@ seventh the pair-count training step (sources in
 bounds it and how its design answers that):
 
 - ``scan_rows``: row gather, char classes and the handshake DFA scan
-  (entry ``scan_rows``), and the handshake validation (``scan_validate``);
+  (entry ``scan_rows``), the handshake validation (``scan_validate``),
+  and the v2 rows' char classes and scan without the handshake
+  (``char_scan``);
 - ``compaction``: the v3 and v2 piece catalogs, flat and row-wise stable
   compaction, slot extraction, monotone routing and the expansion into
   the token stream (with per-row counts for v2);
@@ -76,6 +78,10 @@ _SIGNATURES = {
         "tt_scan_rows": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I,
                          _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
         "tt_scan_validate": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+        "tt_char_scan": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P],
+        "tt_char_scan_smem": [_I, _I, _I, _I, _I],
+        "tt_char_scan_max_smem": [],
     },
     "compaction": {
         "tt_compact": [_P, _LL, _I, _P, _P, _P, _LL, _P, _P, _P, _P],
@@ -268,6 +274,41 @@ def scan_validate(mask, spec_f, row_bad, n_payload, prev_same_doc, emit):
     bad = torch.empty(C, dtype=torch.bool, device=dev)
     _call("scan_rows", "tt_scan_validate", dev, *args, mask3.data_ptr(), bad.data_ptr())
     return mask3, bad
+
+
+def char_scan(tables: ScanTables, rows, n_payload, n_total, *, K: int, na_frac: int):
+    """B16 -> (piece_start [C, K] bool, row_bad [C] bool, na_overflow bool
+    scalar); see ``sweep_scan.char_scan_rows``. The kernel stages a block's
+    rows in shared memory beside the tables: a geometry that does not fit
+    raises before any launch."""
+    if _on_cpu(rows):
+        return sweep_scan.char_scan_rows(tables, rows, n_payload, n_total, K=K, na_frac=na_frac)
+    dev = _dev(rows)
+    C, KL = rows.shape
+    S_, NW = tables.consts.shape
+    n_mixed = tables.mixed_rows.shape[0]
+    if not 0 < K <= KL:
+        raise ValueError(f"mask width K={K} must be in 1..{KL}")
+    lib = _LIBS.load()["scan_rows"]
+    smem, limit = lib.tt_char_scan_smem(KL, K, S_, NW, n_mixed), lib.tt_char_scan_max_smem()
+    if smem > limit:
+        raise ValueError(f"tt_char_scan needs {smem} bytes of shared memory per block for rows "
+                         f"of {KL} bytes, over the limit of {limit}: use a smaller row_capacity")
+    args = [
+        _check("rows", rows, torch.uint8, (C, KL), dev), C, KL, K,
+        _check("n_payload", n_payload, torch.int32, (C,), dev),
+        _check("n_total", n_total, torch.int32, (C,), dev),
+        _check("page_entry", tables.page_entry, torch.int32, None, dev),
+        _check("mixed_rows", tables.mixed_rows, torch.uint8, None, dev), n_mixed,
+        _check("consts", tables.consts, torch.int32, None, dev), S_, NW,
+        tables.skip_class, tables.cont_class, tables.eof_class, na_cap(KL, na_frac),
+    ]
+    mask = torch.empty((C, K), dtype=torch.bool, device=dev)
+    row_bad = torch.empty(C, dtype=torch.bool, device=dev)
+    na_over = torch.empty(C, dtype=torch.bool, device=dev)
+    _call("scan_rows", "tt_char_scan", dev, *args, mask.data_ptr(), row_bad.data_ptr(),
+          na_over.data_ptr())
+    return mask, row_bad, na_over.any()
 
 
 # ---------------------------------------------------------------------------
@@ -643,18 +684,20 @@ def hist_argmax(hist):
 # the kernels (plain versions on CPU tensors), and the plain versions
 # everywhere — the yardstick the chip check holds each kernel against.
 KERNEL_OPS = SimpleNamespace(
-    scan_rows=scan_rows, scan_validate=scan_validate, catalog=catalog, compact=compact,
-    compact_rows=compact_rows, route_right=route_right, expand_tokens=expand_tokens,
-    vocab_hit=vocab_hit, long_vocab_hit=long_vocab_hit, slot_merge=slot_merge,
+    scan_rows=scan_rows, scan_validate=scan_validate, char_scan=char_scan, catalog=catalog,
+    compact=compact, compact_rows=compact_rows, route_right=route_right,
+    expand_tokens=expand_tokens, vocab_hit=vocab_hit, long_vocab_hit=long_vocab_hit,
+    slot_merge=slot_merge,
     catalog2=catalog2, extract_slots=extract_slots, expand_tokens_rows=expand_tokens_rows,
     seq_scan=seq_scan, window_scan=window_scan, orbit=orbit, grid_merge=grid_merge,
     pair_hist=pair_hist, hist_argmax=hist_argmax,
 )
 PLAIN_OPS = SimpleNamespace(
     scan_rows=sweep_scan.scan_rows, scan_validate=sweep_scan.scan_validate,
-    catalog=compaction.catalog, compact=compaction.compact_slots,
-    compact_rows=compaction.compact_rows, route_right=compaction.route_right,
-    expand_tokens=compaction.expand_tokens, vocab_hit=pieces.vocab_hit,
+    char_scan=sweep_scan.char_scan_rows, catalog=compaction.catalog,
+    compact=compaction.compact_slots, compact_rows=compaction.compact_rows,
+    route_right=compaction.route_right, expand_tokens=compaction.expand_tokens,
+    vocab_hit=pieces.vocab_hit,
     long_vocab_hit=pieces.long_vocab_hit, slot_merge=slot_merge_mod.slot_merge,
     catalog2=compaction.catalog2, extract_slots=compaction.extract_slots,
     expand_tokens_rows=compaction.expand_tokens_rows, seq_scan=window_scan_mod.seq_scan,

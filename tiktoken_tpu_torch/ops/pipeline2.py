@@ -1,12 +1,10 @@
-"""The v2 chunk program on the GPU: safe-split rows, byte-level scan,
-piece slots; and the v1 program, its re-run for a chunk whose caps
-overflow.
+"""The v2 chunk program on the GPU: safe-split rows, a boundary scan, piece
+slots; and the v1 program, its re-run for a chunk whose caps overflow.
 
 v2 (``run_chunk2``), the counterpart of the JAX ``build_pipeline2_fn``
-with the byte-level sequential scanner (no char tables) and without
-``pack24``, stage for stage:
+without ``pack24``, stage for stage:
 
-    rows [C, KL] -- seq_scan --> piece_start [C, K], row_bad
+    rows [C, KL] -- char_scan (or seq_scan) --> piece_start [C, K], row_bad
         -- catalog2 --> starts / lens / words per piece (row-major order)
         -- vocab hits --> single-token pieces
         -- short misses: compact, slot merge (W=16), row compaction
@@ -15,14 +13,22 @@ with the byte-level sequential scanner (no char tables) and without
 
     header [2C+2] i32 = [row_counts | row_bad | n_tokens | overflow]
 
-with the JAX caps p_cap = max(256, N//2), m_cap = max(256, N//16), l_cap =
-max(64, N//512), t_cap = max(512, N//2) rounded up to a multiple of 4 (N =
-C*K), and its overflow rule: n_pieces > p_cap-1, n_miss > m_cap, n_long >
-l_cap or n_tokens > t_cap-1. A row with a piece longer than LONG_SLOT is
-flagged bad. Tokens come back as int32 bit patterns (no 24-bit packing).
+The scanner is the JAX package's choice: ``scanner="char"`` (the default,
+JAX's ``char_tables`` route) classifies the row bytes into char classes
+and walks the char-level DFA (``char_scan``, B16), ``scanner="byte"``
+(JAX's ``TIKTOKEN_TPU_SCANNER=seq`` route) walks the byte-level DFA over
+the bytes (``seq_scan``, B9). The caps are the JAX ones, p_cap = max(256,
+N//2), m_cap = max(256, N//16), l_cap = max(64, N//512), t_cap = max(512,
+N//2) rounded up to a multiple of 4 (N = C*K), and so is the overflow
+rule: n_pieces > p_cap-1, n_miss > m_cap, n_long > l_cap, n_tokens >
+t_cap-1, or, under the char scanner, a row with more than ``na_cap(KL,
+8)`` non-ASCII char ends (dense CJK, Cyrillic or Arabic text). A row with
+a piece longer than LONG_SLOT is flagged bad. Tokens come back as int32
+bit patterns (no 24-bit packing).
 
 v1 (``run_rows1``), the counterpart of the JAX ``build_pipeline_fn``:
-window scan, orbit, ``row_bad``, full-grid merge and row packing.
+window scan, orbit, ``row_bad``, full-grid merge and row packing. It
+reads the byte-level scan table.
 
 Glue that stays PyTorch ops on the device: the kind masks
 (``is_short_miss``, ``is_long``, ``m_real``, ``l_real``), the
@@ -41,6 +47,8 @@ from tiktoken_tpu_torch.ops.window_scan import DEFAULT_WINDOW
 
 LOOK = 16  # true continuation bytes per row
 DEFAULT_ROW = 256  # payload bytes per row
+SCANNERS = ("char", "byte")
+NA_FRAC = 8  # the char scanner's non-ASCII cap, na_cap(KL, NA_FRAC) char ends per row
 
 
 def chunk_caps2(K: int, C: int) -> dict[str, int]:
@@ -50,12 +58,14 @@ def chunk_caps2(K: int, C: int) -> dict[str, int]:
                 t_cap=-(-max(512, N // 2) // 4) * 4)
 
 
-def run_chunk2(t, rows, n_payload, n_total, *, ops=KERNEL_OPS):
+def run_chunk2(t, rows, n_payload, n_total, *, scanner: str = "char", ops=KERNEL_OPS):
     """One v2 chunk: (rows [C, KL] u8, n_payload, n_total [C] i32) on one
-    device, with ``t`` the engine's tables (``ChunkTables`` with
-    ``byte_scan`` set) -> (flat_tok [t_cap] i32, header [2C+2] i32).
-    ``ops``: the kernels (``KERNEL_OPS``) or their plain versions
-    (``PLAIN_OPS``)."""
+    device, with ``t`` the engine's tables (``ChunkTables``, with
+    ``byte_scan`` set for ``scanner="byte"``) -> (flat_tok [t_cap] i32,
+    header [2C+2] i32). ``ops``: the kernels (``KERNEL_OPS``) or their
+    plain versions (``PLAIN_OPS``)."""
+    if scanner not in SCANNERS:
+        raise ValueError(f"scanner must be 'char' or 'byte', got {scanner!r}")
     C, KL = rows.shape
     K = KL - LOOK
     caps = chunk_caps2(K, C)
@@ -65,8 +75,13 @@ def run_chunk2(t, rows, n_payload, n_total, *, ops=KERNEL_OPS):
     def ar(n):
         return torch.arange(n, dtype=torch.int32, device=dev)
 
-    # ---- B9: sequential scan ---------------------------------------------------
-    piece_start, row_bad = ops.seq_scan(t.byte_scan, rows, n_payload, n_total, K=K)
+    # ---- B16 (char classes, char-DFA scan) or B9 (byte-DFA scan) -------------
+    if scanner == "char":
+        piece_start, row_bad, na_overflow = ops.char_scan(t.scan, rows, n_payload, n_total, K=K,
+                                                          na_frac=NA_FRAC)
+    else:
+        piece_start, row_bad = ops.seq_scan(t.byte_scan, rows, n_payload, n_total, K=K)
+        na_overflow = False
 
     # ---- B10: catalog, words, too-long rows ----------------------------------
     starts, words, lens, row_bad, n_pieces = ops.catalog2(piece_start, n_payload, rows,
@@ -124,7 +139,7 @@ def run_chunk2(t, rows, n_payload, n_total, *, ops=KERNEL_OPS):
                                                             t_cap, starts, K, C)
 
     overflow = ((n_pieces > p_cap - 1) | (n_miss > m_cap) | (n_long > l_cap)
-                | (n_tokens > t_cap - 1))
+                | (n_tokens > t_cap - 1) | na_overflow)
     header = torch.cat([
         row_counts, row_bad.to(torch.int32),
         torch.stack([n_tokens, overflow.to(torch.int32)]).to(torch.int32),

@@ -1,14 +1,16 @@
-"""Char-level maximal-munch scan of handshake rows (the ``scan_rows`` kernel).
+"""Char-level maximal-munch scan of a chunk's rows (the ``scan_rows`` kernel).
 
-The JAX package runs this stage as three jitted functions: the row gather
-(B1, ``pipeline3.row_gather``), the per-byte char classes (B2,
-``charclass.make_byte_classes_fn``) and the select-sweep DFA scan (B3,
-``sweep_scan.make_char_scan_fn(handshake=True)``), followed by the
-handshake validation (B4, inside ``build_pipeline3_fn``). On the GPU the
-first three are one kernel, one thread per row, and B4 its second entry
-point (csrc/scan_rows.cu). This module holds their plain PyTorch
-versions, the numpy spec of the scan, and the packed step table both
-read.
+The JAX package runs this stage as jitted functions. On the v3 path: the
+row gather (B1, ``pipeline3.row_gather``), the per-byte char classes
+(B2, ``charclass.make_byte_classes_fn``), the select-sweep DFA scan (B3,
+``sweep_scan.make_char_scan_fn(handshake=True)``) and the handshake
+validation (B4, inside ``build_pipeline3_fn``). On the default v2 path:
+the char classes of the v2 rows and the scan without the handshake (B16,
+``make_char_scan_fn(handshake=False)`` from ``build_pipeline2_fn``). On
+the GPU, B1-B3 are one entry point of the ``scan_rows`` kernel, one
+thread per row, B4 a second, and B16 a third (csrc/scan_rows.cu). This
+module holds their plain PyTorch versions, the numpy spec of the scan,
+and the packed step table all of them read.
 
 Semantics are the reference's find_iter maximal munch (reference:
 src/lib.rs:363-365): repeatedly run the DFA from the piece start,
@@ -113,24 +115,10 @@ def scan_tables(tables: CharClassTables, consts: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
-def handshake_scan_numpy(
-    tables: CharClassTables,
-    classes_ext: np.ndarray,
-    n_payload: int,
-    n_total: int,
-    is_doc_end: bool,
-    K: int,
-) -> tuple[np.ndarray, int, bool]:
-    """One row, speculative-handoff contract (pipeline3).
-
-    The scan starts at offset 0 (speculatively — the row may begin
-    mid-piece) and runs until its first boundary at or past ``n_payload``
-    (``spec_f``, the handoff the next row validates against). Returns
-    (piece_start mask [K] for starts < n_payload, spec_f, bad). ``bad``
-    additionally fires when resolution consumed the end-of-buffer EOF on
-    a row that is NOT the end of its document. For a bad row ``spec_f``
-    is unspecified (the kernels, like the JAX one, keep the end of the
-    dying match)."""
+def _walk_numpy(tables: CharClassTables, classes_ext: np.ndarray, n_payload: int,
+                n_total: int, is_doc_end: bool | None, K: int) -> tuple[np.ndarray, int, bool]:
+    """One row's walk from offset 0: (piece_start mask [K], first boundary
+    at or past ``n_payload``, bad). ``is_doc_end`` None: no handshake."""
     consts = build_scan_consts(tables)
     SKIP = tables.skip_class
     CONTC = tables.cont_class
@@ -152,9 +140,12 @@ def handshake_scan_numpy(
             else:
                 lend = p + 1
         eof_death = p >= n_total
+        # CONT at a match start: the match begins on a continuation byte —
+        # the byte DFA dies immediately there, so force the same
+        # death/no-progress outcome
         died = (s2 == DEAD) or eof_death or (c == CONTC and p == mstart)
         if died:
-            if eof_death and not is_doc_end:
+            if eof_death and is_doc_end is False:
                 bad = True  # unresolved straddler / fake-EOF resolution
             if mstart < n_payload and mstart < K:
                 mask[mstart] = True
@@ -170,13 +161,43 @@ def handshake_scan_numpy(
                 break
             p, s, mstart, cs, lend = lend, START, lend, lend, -1
         else:
-            if c < SKIP:
+            if c < SKIP:  # char-end byte consumed (SKIP/CONT hold state)
                 cs = p + 1
             p += 1
             s = s2
     else:
         bad = True
     return mask, int(spec_f), bad
+
+
+def char_scan_numpy(tables: CharClassTables, classes_ext: np.ndarray, n_payload: int,
+                    n_total: int, K: int) -> tuple[np.ndarray, bool]:
+    """One row, the v2 contract. classes_ext [KL+1] int32 with EOF at >=
+    n_total and in the final column. Returns (piece_start mask [K] bool,
+    bad)."""
+    mask, _, bad = _walk_numpy(tables, classes_ext, n_payload, n_total, None, K)
+    return mask, bad
+
+
+def handshake_scan_numpy(
+    tables: CharClassTables,
+    classes_ext: np.ndarray,
+    n_payload: int,
+    n_total: int,
+    is_doc_end: bool,
+    K: int,
+) -> tuple[np.ndarray, int, bool]:
+    """One row, speculative-handoff contract (pipeline3).
+
+    The scan starts at offset 0 (speculatively — the row may begin
+    mid-piece) and runs until its first boundary at or past ``n_payload``
+    (``spec_f``, the handoff the next row validates against). Returns
+    (piece_start mask [K] for starts < n_payload, spec_f, bad). ``bad``
+    additionally fires when resolution consumed the end-of-buffer EOF on
+    a row that is NOT the end of its document. For a bad row ``spec_f``
+    is unspecified (the kernels, like the JAX one, keep the end of the
+    dying match)."""
+    return _walk_numpy(tables, classes_ext, n_payload, n_total, bool(is_doc_end), K)
 
 
 # ---------------------------------------------------------------------------
@@ -192,15 +213,12 @@ def row_gather(flat: torch.Tensor, row_off: torch.Tensor, KL: int) -> torch.Tens
     return torch.where(inside, flat[idx.clamp(max=flat.shape[0] - 1)], 0).to(torch.uint8)
 
 
-def handshake_scan(consts: torch.Tensor, cls_ext: torch.Tensor,
-                   n_payload: torch.Tensor, n_total: torch.Tensor,
-                   is_doc_end: torch.Tensor, *, KP: int, cont_class: int,
-                   eof_class: int):
-    """B3, all rows in lockstep: (classes_ext [C, KL+1] i32, n_payload,
-    n_total [C] i32, is_doc_end [C] bool) -> (piece_start mask [C, KP]
-    bool, spec_f [C] i32, row_bad [C] bool). Each row follows
-    ``handshake_scan_numpy`` step for step, with the step cap
-    3 * (KL + 2)."""
+def _walk(consts: torch.Tensor, cls_ext: torch.Tensor, n_payload: torch.Tensor,
+          n_total: torch.Tensor, is_doc_end: torch.Tensor | None, *, K: int,
+          cont_class: int, eof_class: int):
+    """All rows in lockstep, each following ``_walk_numpy`` step for step
+    with the step cap 3 * (KL + 2): (mask [C, K] bool, f [C] int64, bad [C]
+    bool). ``is_doc_end`` None: no handshake."""
     C, KL1 = cls_ext.shape
     KL = KL1 - 1
     dev = cls_ext.device
@@ -221,7 +239,7 @@ def handshake_scan(consts: torch.Tensor, cls_ext: torch.Tensor,
     done = n_payload <= 0
     bad = torch.zeros(C, dtype=torch.bool, device=dev)
     f = n_payload.clamp(min=0)
-    mask = torch.zeros(C * KP, dtype=torch.uint8, device=dev)
+    mask = torch.zeros(C * K, dtype=torch.uint8, device=dev)
     for it in range(3 * (KL + 2)):
         if it % 16 == 0 and not bool((~(done | bad)).any()):
             break
@@ -234,15 +252,18 @@ def handshake_scan(consts: torch.Tensor, cls_ext: torch.Tensor,
         end_rew = torch.where(c == eof_class, p, cs)
         lend = torch.where(fired & active, torch.where(rew1, end_rew, p + 1), lend)
         died = (s2 == DEAD) | (p >= n_total) | ((c == cont_class) & (p == mstart))
-        emit = died & active & (mstart < n_payload)
+        emit = died & active & (mstart < n_payload) & (mstart < K)
         mask.scatter_reduce_(
-            0, rows * KP + mstart.clamp(0, KP - 1), emit.to(torch.uint8), "amax"
+            0, rows * K + mstart.clamp(0, K - 1), emit.to(torch.uint8), "amax"
         )
         no_prog = died & (lend <= mstart)
         finished = torch.where(died, lend, mstart) >= n_payload
         bad = bad | (no_prog & active & ~finished)
-        eof_bad = died & active & (p >= n_total) & ~is_doc_end
-        bad = bad | eof_bad
+        if is_doc_end is None:
+            eof_bad = torch.zeros_like(bad)
+        else:
+            eof_bad = died & active & (p >= n_total) & ~is_doc_end
+            bad = bad | eof_bad
         stop = died & (finished | no_prog) & active
         f = torch.where(stop & ~eof_bad, lend, f)
         done = done | stop
@@ -254,16 +275,36 @@ def handshake_scan(consts: torch.Tensor, cls_ext: torch.Tensor,
         s = torch.where(adv, s2, START)
         mstart = torch.where(restart, lend, mstart)
         lend = torch.where(restart, -1, lend)
-    bad = bad | ~done
-    spec_f = torch.where(n_payload <= 0, 0, f).to(torch.int32)
-    return mask.view(C, KP).bool(), spec_f, bad
+    return mask.view(C, K).bool(), f, bad | ~done
 
 
-def scan_rows(tables: ScanTables, flat, row_off, n_payload, n_total, is_doc_end,
-              *, KP: int, KL: int, na_frac: int):
-    """B1+B2+B3: (rows [C, KL] u8, mask [C, KP] bool, spec_f [C] i32,
-    row_bad [C] bool, na_overflow bool scalar)."""
-    rows = row_gather(flat, row_off, KL)
+def handshake_scan(consts: torch.Tensor, cls_ext: torch.Tensor,
+                   n_payload: torch.Tensor, n_total: torch.Tensor,
+                   is_doc_end: torch.Tensor, *, KP: int, cont_class: int,
+                   eof_class: int):
+    """B3, all rows in lockstep: (classes_ext [C, KL+1] i32, n_payload,
+    n_total [C] i32, is_doc_end [C] bool) -> (piece_start mask [C, KP]
+    bool, spec_f [C] i32, row_bad [C] bool); each row as
+    ``handshake_scan_numpy``."""
+    mask, f, bad = _walk(consts, cls_ext, n_payload, n_total, is_doc_end, K=KP,
+                         cont_class=cont_class, eof_class=eof_class)
+    return mask, torch.where(n_payload <= 0, 0, f).to(torch.int32), bad
+
+
+def char_scan(consts: torch.Tensor, cls_ext: torch.Tensor, n_payload: torch.Tensor,
+              n_total: torch.Tensor, *, K: int, cont_class: int, eof_class: int):
+    """B16's scan, all rows in lockstep: (classes_ext [C, KL+1] i32,
+    n_payload, n_total [C] i32) -> (piece_start [C, K] bool, row_bad [C]
+    bool); each row as ``char_scan_numpy``."""
+    mask, _, bad = _walk(consts, cls_ext, n_payload, n_total, None, K=K,
+                         cont_class=cont_class, eof_class=eof_class)
+    return mask, bad
+
+
+def row_classes(tables: ScanTables, rows: torch.Tensor, n_total: torch.Tensor,
+                na_frac: int):
+    """B2 over rows [C, KL] u8, with the EOF column appended: (classes
+    [C, KL+1] i32, na_overflow bool scalar)."""
     cls, na_overflow = byte_classes(
         tables.page_entry, tables.mixed_rows, rows, n_total,
         skip_class=tables.skip_class, cont_class=tables.cont_class,
@@ -271,12 +312,30 @@ def scan_rows(tables: ScanTables, flat, row_off, n_payload, n_total, is_doc_end,
     )
     eof_col = torch.full((cls.shape[0], 1), tables.eof_class, dtype=cls.dtype,
                          device=cls.device)
+    return torch.cat([cls, eof_col], dim=1), na_overflow
+
+
+def scan_rows(tables: ScanTables, flat, row_off, n_payload, n_total, is_doc_end,
+              *, KP: int, KL: int, na_frac: int):
+    """B1+B2+B3: (rows [C, KL] u8, mask [C, KP] bool, spec_f [C] i32,
+    row_bad [C] bool, na_overflow bool scalar)."""
+    rows = row_gather(flat, row_off, KL)
+    cls, na_overflow = row_classes(tables, rows, n_total, na_frac)
     mask, spec_f, row_bad = handshake_scan(
-        tables.consts, torch.cat([cls, eof_col], dim=1), n_payload, n_total,
-        is_doc_end, KP=KP, cont_class=tables.cont_class,
-        eof_class=tables.eof_class,
+        tables.consts, cls, n_payload, n_total, is_doc_end, KP=KP,
+        cont_class=tables.cont_class, eof_class=tables.eof_class,
     )
     return rows, mask, spec_f, row_bad, na_overflow
+
+
+def char_scan_rows(tables: ScanTables, rows, n_payload, n_total, *, K: int, na_frac: int):
+    """B16, the v2 rows' char classes and scan: (rows [C, KL] u8, n_payload,
+    n_total [C] i32) -> (piece_start [C, K] bool, row_bad [C] bool,
+    na_overflow bool scalar)."""
+    cls, na_overflow = row_classes(tables, rows, n_total, na_frac)
+    mask, row_bad = char_scan(tables.consts, cls, n_payload, n_total, K=K,
+                              cont_class=tables.cont_class, eof_class=tables.eof_class)
+    return mask, row_bad, na_overflow
 
 
 def scan_validate(mask, spec_f, row_bad, n_payload, prev_same_doc, emit):

@@ -14,8 +14,11 @@ counters are summed on the host.
   its caps, the dispatch's chunks re-run through the worst-case variant,
   and a worst-case header that still overflows raises;
 - v2 (``encode_corpus(pipeline=2)``, ``encode_rows_tokens``): rows split
-  into per-device chunks; a chunk that overflows re-runs through its
-  device's v1 program;
+  into per-device chunks, scanned by the char-level scanner or, with
+  ``scanner="byte"``, the byte-level one; a chunk that overflows re-runs
+  through its device's v1 program (straight to v1, where the JAX sharded
+  v2 first re-runs it through the single-device v2 program: the ids are
+  equal, the chunk counters may differ);
 - v1 (``encode_rows``): every device runs the v1 program over its share of
   the rows, with the counters as ``CorpusStats``.
 
@@ -37,6 +40,7 @@ from tiktoken_tpu_torch.ops.engine import (
     MAX_K,
     PackedBatch,
     TorchEngine,
+    check_route,
     chunk_bytes3,
     encode_corpus2_on,
     encode_corpus3_on,
@@ -64,7 +68,8 @@ class ShardedEngine:
 
     Rows are split over ``mesh`` in order; the tables are copied once to
     every distinct device of the list (a repeated device shares one
-    copy)."""
+    copy), the byte-level scan table when a call first needs it, from the
+    source engine, which compiles it once."""
 
     def __init__(self, engine: TorchEngine, mesh: Sequence[torch.device]):
         if not mesh:
@@ -76,20 +81,13 @@ class ShardedEngine:
         for dev in self.mesh:
             if dev not in self.engines:
                 self.engines[dev] = TorchEngine(engine.tables.to(dev), engine.vocab_report,
-                                                engine.pat_str)
+                                                byte_source=engine)
         self.stats = {"rows": 0, "chunks": 0, "worst_case_chunks": 0, "fallback_docs": 0,
                       "v1_fallback_chunks": 0}
         self.timing: dict[str, float] = {}
 
-    def _replicas(self, byte_level: bool = False) -> list[TorchEngine]:
-        """The engine of each mesh entry, in order; ``byte_level`` gives
-        each the byte-level scan table, compiled once by the source engine
-        and copied over."""
-        if byte_level:
-            table = self.engine.byte_tables().byte_scan
-            for dev, eng in self.engines.items():
-                if eng.tables.byte_scan is None:
-                    eng.tables.byte_scan = table.to(dev)
+    def _replicas(self) -> list[TorchEngine]:
+        """The engine of each mesh entry, in order."""
         return [self.engines[dev] for dev in self.mesh]
 
     # -- v3 -------------------------------------------------------------------
@@ -142,7 +140,7 @@ class ShardedEngine:
                           n_total=batch.n_total[sl], doc_index=batch.doc_index[sl])
                   for sl in (slice(d * per, (d + 1) * per) for d in range(self.n_devices))]
         pending = [eng.enqueue_rows1(share, chunk_rows)
-                   for eng, share in zip(self._replicas(byte_level=True), shares)]
+                   for eng, share in zip(self._replicas(), shares)]
         outs = [fetch_rows1(p, share) for p, share in zip(pending, shares)]
         packed, counts, row_bad = (np.concatenate([o[i] for o in outs]) for i in range(3))
         stats = CorpusStats(rows=batch.rows.shape[0], payload_bytes=int(batch.n_payload.sum()),
@@ -151,25 +149,26 @@ class ShardedEngine:
         self.stats["rows"] += B0
         return packed[:B0], counts[:B0], row_bad[:B0], stats
 
-    def encode_rows_tokens(self, batch: PackedBatch, chunk_rows: int = DEFAULT_CHUNK_ROWS):
-        """The v2 path over the mesh: (row_tokens, one uint32 array per row;
-        row_bad [B] bool). Each dispatch gives every device a chunk of
-        consecutive rows; a chunk that overflows a cap re-runs through its
-        device's v1 program."""
-        return split_rows(resolve_chunks2(self._replicas(byte_level=True), batch, chunk_rows,
-                                          self.stats, self.timing))
+    def encode_rows_tokens(self, batch: PackedBatch, chunk_rows: int = DEFAULT_CHUNK_ROWS,
+                           scanner: str = "char"):
+        """The v2 path with ``scanner`` over the mesh: (row_tokens, one
+        uint32 array per row; row_bad [B] bool). Each dispatch gives every
+        device a chunk of consecutive rows; a chunk that overflows a cap
+        re-runs through its device's v1 program."""
+        return split_rows(resolve_chunks2(self._replicas(), batch, chunk_rows, self.stats,
+                                          self.timing, scanner))
 
     def encode_corpus(self, texts: Sequence[str] | Sequence[bytes], host_fallback=None,
                       row_capacity: int | None = None, chunk_rows: int | None = None,
-                      pipeline: int = 3, as_numpy: bool = False):
+                      pipeline: int = 3, as_numpy: bool = False, scanner: str = "char"):
         """Encode documents over the mesh; byte-exact with the host
-        ``encode_ordinary``. ``pipeline`` as in ``Encoding.encode_corpus``:
-        3 (the default) runs ``encode_corpus3``, 2 the v2 program over rows
-        of ``row_capacity`` bytes cut at safe split points."""
-        if pipeline not in (2, 3):
-            raise ValueError(f"pipeline must be 2 or 3, got {pipeline!r}")
+        ``encode_ordinary``. ``pipeline`` and ``scanner`` as in
+        ``Encoding.encode_corpus``: 3 (the default) runs ``encode_corpus3``,
+        2 the v2 program with ``scanner`` over rows of ``row_capacity``
+        bytes cut at safe split points."""
+        check_route(pipeline, scanner)
         if pipeline == 3:
             return self.encode_corpus3(texts, host_fallback=host_fallback, K=row_capacity,
                                        chunk_rows=chunk_rows, as_numpy=as_numpy)
-        return encode_corpus2_on(self._replicas(byte_level=True), texts, host_fallback,
-                                 row_capacity, chunk_rows, as_numpy, self.stats, self.timing)
+        return encode_corpus2_on(self._replicas(), texts, host_fallback, row_capacity, chunk_rows,
+                                 as_numpy, self.stats, self.timing, scanner)
