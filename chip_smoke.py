@@ -14,15 +14,21 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    K=176: every entry point against its plain PyTorch version on the
    same inputs (integers, so exact equality), timed with CUDA events;
    then the whole chunk program with the kernels and with the plain
-   versions;
+   versions, and every entry point again on the edge documents' chunks
+   (over the non-ASCII cap, in both cap variants); the scan's walk
+   steps per row (the plain walk's count), its time at 32-256 rows per
+   block, and the cycles of one dependent walk step with the latency
+   floor they give;
 4b. the same on one real v2 chunk at C=32768 rows, K=256: every entry
    point of ``run_chunk2`` under the char scanner (``tt_char_scan``), the
    byte scanner's ``tt_seq_scan`` (the byte-level scan table compiled and
    uploaded first) and every entry of the v1 ``run_rows1`` on those rows
    against its plain version, then the three programs with the kernels
    against plain (a chunk over the char scanner's non-ASCII cap is held
-   by its header only, and the rows over the cap are counted); a row too
-   long for ``tt_char_scan``'s shared memory is refused before launch;
+   by its header only, and the rows over the cap are counted); the same
+   scan study as phase 4; the edge documents' chunk, over the cap, entry
+   point by entry point; a row too long for the scan's shared memory is
+   refused before launch;
 5. the v3 main path: ``Encoding.encode_corpus_to_numpy`` over the corpus
    on ``cuda``, with every kernel's launch count read around it;
 5b. the v2 main path: the same call with ``pipeline=2`` (the char
@@ -76,7 +82,7 @@ INT32_OPS_PER_S = 67e12  # float32 non-tensor rate, as the 32-bit ALU proxy
 KERNEL_OF = {
     "pair_hist": "pair_count", "hist_argmax": "pair_count",
     "scan_rows": "scan_rows", "scan_validate": "scan_rows", "char_scan": "scan_rows",
-    "catalog": "compaction", "compact": "compaction", "compact_rows": "compaction",
+    "catalog": "compaction", "compact_kinds": "compaction", "compact_rows": "compaction",
     "route_right": "compaction", "expand_tokens": "compaction", "catalog2": "compaction",
     "extract_slots": "compaction", "expand_tokens_rows": "compaction",
     "vocab_hit": "vocab_hit", "long_vocab_hit": "vocab_hit",
@@ -106,6 +112,7 @@ JAX_FUNCTIONS = {
     "compaction": ["compaction.compact", "compaction.expand", "pipeline3.route_right",
                    "pipeline3 catalog lengths, too-long flags and word padding",
                    "pipeline3 slot prefix sums and token fetch",
+                   "pipeline3 / pipeline2 short-miss and long masks and compactions",
                    "pieces.make_catalog_fn", "pieces.make_extract_fn",
                    "pipeline2 extract_long", "pipeline2 assembly and row counts"],
     "vocab_hit": ["pieces.make_vocab_hit_fn", "pieces.make_long_vocab_hit_fn"],
@@ -348,11 +355,17 @@ def work_of(name, args, out) -> tuple[int, int]:
         start_at[outs[0][:n].to(torch.int64)] = True
         moved = nbytes([mask3, spec_f, row_bad]) + touched(start_at, 1) + nbytes(outs)
         ops = mask3.numel() + 16 * n
-    elif name == "compact":
-        valid, payloads, _ = args
-        moved = valid.numel() + nbytes(outs) + sum(
-            touched(valid, p[0].numel() * p.element_size()) for p in payloads)
-        ops = valid.numel()
+    elif name == "compact_kinds":
+        # lens and hits of the live pieces, the words of the short misses
+        # and the starts of the long pieces in; the compactions and slots out
+        from tiktoken_tpu_torch.ops.compaction import kind_masks
+
+        words, starts, lens, hit, n_pieces = args[:5]
+        live = torch.arange(lens.shape[0], device=lens.device) < n_pieces
+        miss, lng = kind_masks(lens, hit, n_pieces)
+        moved = (2 * touched(live, 4) + touched(miss, 16) + touched(lng, 4) + 4
+                 + nbytes(outs))
+        ops = lens.numel()
     elif name == "compact_rows":
         valid, vals = args
         moved = valid.numel() + touched(valid, vals.element_size()) + nbytes(outs)
@@ -456,10 +469,19 @@ def library_call(name, args, out):
                     + torch.arange(KP, device=rows.device)[None, :]).to(torch.int32).reshape(-1)
         m = mask3.reshape(-1)
         return (lambda: torch.index_select(flat_idx, 0, torch.nonzero(m).squeeze(1))), True
-    if name == "compact":
-        valid, payloads = args[0], args[1]
-        return (lambda: [torch.index_select(p, 0, torch.nonzero(valid).squeeze(1))
-                         for p in payloads]), True
+    if name == "compact_kinds":
+        from tiktoken_tpu_torch.ops.compaction import kind_masks
+
+        words, starts, lens, hit, n_pieces = args[:5]
+        miss, lng = kind_masks(lens, hit, n_pieces)
+
+        def kinds():
+            m = torch.nonzero(miss).squeeze(1)
+            l_ = torch.nonzero(lng).squeeze(1)
+            return ([torch.index_select(x, 0, m) for x in (words, lens)],
+                    [torch.index_select(x, 0, l_) for x in (starts, lens)])
+
+        return kinds, True
     if name == "compact_rows":
         valid, vals = args
         return (lambda: torch.masked_select(vals, valid)), True
@@ -511,7 +533,7 @@ def kernel_phase(enc, docs, device="cuda", C: int = 32768):
     """Phase 4: one real v3 chunk through run_chunk, with the kernels
     against the plain versions, every call recorded; edge chunks in both
     cap variants."""
-    from tiktoken_tpu_torch.ops import kernels, pipeline3
+    from tiktoken_tpu_torch.ops import kernels, pipeline3, sweep_scan
 
     eng = enc.engine(device)
     K = pipeline3.K_DEFAULT
@@ -546,22 +568,40 @@ def kernel_phase(enc, docs, device="cuda", C: int = 32768):
     pe = pipeline3.pack_corpus3(edge, K)
     Ce = 128
     Se = -(-(Ce * KP + KL + 8) // 128) * 128
+    over_cap = 0
     for wc in (False, True):
         for lo in range(0, len(pe.row_off), Ce - 1):
             ins = eng.upload(pipeline3.chunk_inputs3(pe, lo, Ce - 1, Ce, Se)[0])
-            tk, hk_ = pipeline3.run_chunk(eng.tables, *ins, K=K, worst_case=wc)
+            calls_e: list = []
+            tk, hk_ = pipeline3.run_chunk(eng.tables, *ins, K=K, worst_case=wc,
+                                          ops=recording_ops(kernels.KERNEL_OPS, calls_e))
             tp, hp_ = pipeline3.run_chunk(eng.tables, *ins, K=K, worst_case=wc,
                                           ops=kernels.PLAIN_OPS)
             n = int(hk_[-2])
             if not (torch.equal(hk_, hp_) and torch.equal(tk[:n], tp[:n])):
                 raise RuntimeError(f"edge chunk {lo} (worst_case={wc}): kernels and "
                                    "plain versions disagree")
-    log("edge documents: chunk program with kernels == plain, normal and worst-case caps")
+            check_calls(calls_e, f"edge chunk {lo} (worst_case={wc})")
+            over_cap += bool(calls_e[0][3][4])  # scan_rows' na_overflow
+    if not over_cap:
+        raise RuntimeError("no v3 edge chunk went over the non-ASCII cap")
+    log(f"edge documents: chunk program with kernels == plain, normal and worst-case caps, every "
+        f"entry point equal to plain; {over_cap} chunks over the non-ASCII cap")
+    scan_call = calls[0]
+    rows = scan_call[3][0]
+    t = eng.tables.scan
+    na_frac = scan_call[2]["na_frac"]
+    cls, _ = sweep_scan.row_classes(t, rows, dev_inputs[3], na_frac)
+    steps = sweep_scan.walk_steps(t, cls, dev_inputs[2], dev_inputs[3], dev_inputs[4])
+    study = scan_study("v3 scan (tt_scan_rows)", kernels.scan_rows, dict(
+        tables=t, flat=dev_inputs[0], row_off=dev_inputs[1], n_payload=dev_inputs[2],
+        n_total=dev_inputs[3], is_doc_end=dev_inputs[4], KP=KP, KL=KL, na_frac=na_frac),
+        dict(n_payload=torch.zeros(32, dtype=torch.int32, device=rows.device)), steps)
     chunk_ms = gpu_ms(lambda: pipeline3.run_chunk(eng.tables, *dev_inputs, K=K), reps=5)
     log(f"chunk program C={C} K={K}: kernels == plain (n_pieces={hk[-5]} "
         f"n_miss={hk[-4]} n_long={hk[-3]} n_tokens={nt}); device time with the "
         f"kernels {chunk_ms:.3f} ms")
-    return calls, chunk_ms
+    return calls, chunk_ms, study
 
 
 def new_per() -> dict:
@@ -570,6 +610,85 @@ def new_per() -> dict:
     return {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_bound_ms=0.0, ops_bound_ms=0.0,
                     library_ms=None, max_abs_err=0, match=True, entries=[])
             for k in kernels.KERNELS}
+
+
+def plain_error(name, args, kwargs, out) -> int:
+    """The largest difference between a recorded kernel call's outputs and
+    its plain version's on the same inputs."""
+    from tiktoken_tpu_torch.ops import kernels
+
+    want = flatten(getattr(kernels.PLAIN_OPS, name)(*args, **kwargs))
+    err = 0
+    for g, w in zip(flatten(out), want, strict=True):
+        if g.shape != w.shape:
+            raise RuntimeError(f"{name}: shape {tuple(g.shape)} vs plain {tuple(w.shape)}")
+        d = (g.to(torch.int64) - w.to(torch.int64)).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+def check_calls(calls, what: str) -> None:
+    """Every recorded kernel call equals its plain version; fails otherwise."""
+    for name, args, kwargs, out in calls:
+        err = plain_error(name, args, kwargs, out)
+        if err:
+            raise RuntimeError(f"{what}: {name} differs from its plain version (max abs err {err})")
+
+
+def warp_steps(steps: torch.Tensor) -> tuple[float, int, float]:
+    """(mean, max, mean of each warp's max) of per-row walk steps, a warp
+    being 32 consecutive rows."""
+    s = steps.to(torch.float64)
+    w = torch.cat([s, s.new_zeros((-s.numel()) % 32)]).view(-1, 32).amax(dim=1)
+    return float(s.mean()), int(s.max()), float(w.mean())
+
+
+def scan_study(kind: str, scan, rows_args: dict, nowalk_args: dict, steps: torch.Tensor) -> dict:
+    """The walk's step counts, the scan at 32-256 rows per block (each equal
+    to the default's outputs), and the cycles of one dependent walk step:
+    the scan of the first 32 rows (one warp walks) less the same rows with
+    no payload (no walk), over that warp's longest walk. Returns the
+    numbers, printed too."""
+    from tiktoken_tpu_torch.ops import kernels
+
+    mean, mx, warp_max = warp_steps(steps)
+    log(f"{kind} walk steps per row: mean {mean:.2f}, max {mx}, mean of each warp's max "
+        f"{warp_max:.2f} ({steps.numel()} rows)")
+    default = kernels.SCAN_ROWS_PER_BLOCK
+    want = flatten(scan(**rows_args))
+    sweep = {}
+    try:
+        for R in (32, 64, 128, 256):
+            kernels.SCAN_ROWS_PER_BLOCK = R
+            got = flatten(scan(**rows_args))
+            if not all(torch.equal(a, b) for a, b in zip(got, want, strict=True)):
+                raise RuntimeError(f"{kind}: {R} rows per block differ from {default}")
+            sweep[R] = gpu_ms(lambda: scan(**rows_args))
+        first = {k: v[:32] if isinstance(v, torch.Tensor) and v.dim() and k != "flat" else v
+                 for k, v in rows_args.items()}
+        nowalk = {**first, **nowalk_args}
+        kernels.SCAN_ROWS_PER_BLOCK = default
+        walk_ms = gpu_ms(lambda: scan(**first), reps=50) - gpu_ms(lambda: scan(**nowalk), reps=50)
+    finally:
+        kernels.SCAN_ROWS_PER_BLOCK = default
+    clock = sm_clock_hz()
+    cycles = walk_ms * 1e-3 * clock / int(steps[:32].max())
+    floor_ms = warp_max * cycles / clock * 1e3
+    log(f"{kind} ms by rows per block: " + ", ".join(f"{r}: {v:.4f}" for r, v in sweep.items())
+        + f" (default {default})")
+    log(f"{kind} one dependent walk step: {cycles:.1f} cycles at {clock / 1e6:.0f} MHz "
+        f"(first warp: {walk_ms * 1e3:.2f} us over {int(steps[:32].max())} steps); latency floor "
+        f"{warp_max:.2f} steps x {cycles:.1f} cycles = {floor_ms:.5f} ms")
+    return dict(steps_mean=mean, steps_max=mx, steps_warp_max=warp_max, sweep_ms=sweep,
+                cycles_per_step=cycles, latency_floor_ms=floor_ms)
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), the clock a busy card runs at."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
 
 
 def measure(calls, per: dict, program: str) -> None:
@@ -582,14 +701,7 @@ def measure(calls, per: dict, program: str) -> None:
         kname = KERNEL_OF[name]
         k_fn = getattr(kernels.KERNEL_OPS, name)
         p_fn = getattr(kernels.PLAIN_OPS, name)
-        want = flatten(p_fn(*args, **kwargs))
-        got = flatten(out)
-        err = 0
-        for g, w in zip(got, want, strict=True):
-            if g.shape != w.shape:
-                raise RuntimeError(f"{name}: shape {tuple(g.shape)} vs plain {tuple(w.shape)}")
-            d = (g.to(torch.int64) - w.to(torch.int64)).abs()
-            err = max(err, int(d.max()) if d.numel() else 0)
+        err = plain_error(name, args, kwargs, out)
         ms = gpu_ms(lambda: k_fn(*args, **kwargs))
         plain_ms = wall_ms(lambda: p_fn(*args, **kwargs))
         moved, ops = work_of(name, args, out)
@@ -646,7 +758,7 @@ def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
     overflowing chunk's stream is discarded and re-run through v1).
     Returns (the char route's calls, the byte route's seq_scan call, the v1
     calls, and the chunk ms of the char route, the byte route and v1)."""
-    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops import kernels, sweep_scan
     from tiktoken_tpu_torch.ops.charclass import na_cap
     from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, pack_documents
     from tiktoken_tpu_torch.ops.pipeline2 import NA_FRAC, run_chunk2, run_rows1
@@ -680,6 +792,26 @@ def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
             f"{na_cap(KL, NA_FRAC)} char ends; headers equal, tokens not compared")
     elif not torch.equal(tok_k[:nt], tok_p[:nt]):
         raise RuntimeError("v2 chunk program (char): kernels and plain versions disagree")
+    steps = sweep_scan.walk_steps(t.scan, sweep_scan.row_classes(t.scan, rows, tot, NA_FRAC)[0],
+                                  pay, tot)
+    study = scan_study("v2 scan (tt_char_scan)", kernels.char_scan, dict(
+        tables=t.scan, rows=rows, n_payload=pay, n_total=tot, K=KL - 16, na_frac=NA_FRAC),
+        dict(n_payload=torch.zeros(32, dtype=torch.int32, device=rows.device)), steps)
+    # a chunk over the non-ASCII cap: the edge documents
+    edge = pack_documents([x.encode() for x in (CJK * 40, "x" * 9000, "1a" * 600, CYR * 30,
+                                                ARABIC * 25)], DEFAULT_ROW)
+    er, ep, et, _ = eng.upload_rows(edge, 0, 128)
+    calls_e: list = []
+    _, hdr_e = run_chunk2(t, er, ep, et, ops=recording_ops(kernels.KERNEL_OPS, calls_e))
+    _, hdr_ep = run_chunk2(t, er, ep, et, ops=kernels.PLAIN_OPS)
+    if not torch.equal(hdr_e, hdr_ep):
+        raise RuntimeError("v2 edge chunk (char): kernels and plain versions disagree on the "
+                           "header")
+    check_calls(calls_e, "v2 edge chunk (char)")
+    if not (bool(calls_e[0][3][2]) and int(hdr_e[-1])):
+        raise RuntimeError("the v2 edge chunk did not go over the non-ASCII cap")
+    log(f"v2 edge chunk: over the non-ASCII cap ({na_rows(er, et, na_cap(KL, NA_FRAC))} rows); "
+        "header and every entry point equal to plain")
     try:
         big = torch.zeros((4, 2048 + 16), dtype=torch.uint8, device=rows.device)
         z = torch.zeros(4, dtype=torch.int32, device=rows.device)
@@ -727,7 +859,7 @@ def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
         f"tokens={int(out_k[1].sum())}, row_bad={int(out_k[3].sum())}); device time with the "
         f"kernels {rows1_ms:.3f} ms")
     seq = [c for c in calls_b if c[0] == "seq_scan"]  # the rest repeats the char route's entries
-    return calls, seq, calls1, (chunk2_ms, chunk2b_ms, rows1_ms)
+    return calls, seq, calls1, (chunk2_ms, chunk2b_ms, rows1_ms), study
 
 
 # ---------------------------------------------------------------------------
@@ -777,13 +909,13 @@ def main() -> int:
     # ---- 4: every kernel against its plain version, v3 chunk --------------
     t0 = time.perf_counter()
     per = new_per()
-    calls3, chunk_ms = kernel_phase(enc, docs)
+    calls3, chunk_ms, study3 = kernel_phase(enc, docs)
     measure(calls3, per, "v3")
     phase_s = {"4": time.perf_counter() - t0}
 
     # ---- 4b: the same on a v2 chunk under both scanners and its v1 re-run -----
     t0 = time.perf_counter()
-    calls2, calls2b, calls1, (chunk2_ms, chunk2b_ms, rows1_ms) = kernel_phase2(enc, docs)
+    calls2, calls2b, calls1, (chunk2_ms, chunk2b_ms, rows1_ms), study2 = kernel_phase2(enc, docs)
     measure(calls2, per, "v2")
     measure(calls2b, per, "v2_byte")
     measure(calls1, per, "v1")
@@ -800,6 +932,8 @@ def main() -> int:
     busy = (run["chunks"] + run["worst_case_chunks"]) * chunk_ms / 1e3
     log(f"device busy share of the v3 main path: about {busy / secs:.3f} "
         f"({run['chunks'] + run['worst_case_chunks']} chunk programs x {chunk_ms:.3f} ms)")
+    if launches["v3"]["entries"].get("tt_compact_kinds", 0) <= 0:
+        raise RuntimeError("tt_compact_kinds was not launched on the v3 path")
     if run["worst_case_chunks"] <= 0 or run["fallback_docs"] <= 0:
         raise RuntimeError("the edge documents took neither the worst-case re-run "
                            "nor the host fallback")
@@ -829,6 +963,7 @@ def main() -> int:
     if run_o["v1_fallback_chunks"] <= 0:
         raise RuntimeError("the overflow call did not re-run a chunk through v1")
     for path, entry in (("v2", "tt_char_scan"), ("v2_byte", "tt_seq_scan"),
+                        ("v2", "tt_compact_kinds"), ("v2_byte", "tt_compact_kinds"),
                         ("v2_overflow", "tt_char_scan"), ("v2_overflow", "tt_window_scan"),
                         ("v2_overflow", "tt_orbit"), ("v2_overflow", "tt_grid_merge")):
         if launches[path]["entries"].get(entry, 0) <= 0:
@@ -894,6 +1029,7 @@ def main() -> int:
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by="bytes" if e["bytes_bound_ms"] >= e["ops_bound_ms"] else "operations",
             library_ms=e["library_ms"],
+            **({"scan_study": {"v3": study3, "v2": study2}} if k == "scan_rows" else {}),
             by_program={prog: dict(
                 ms=sum(x["ms"] for x in e["entries"] if x["program"] == prog),
                 plain_ms=sum(x["plain_ms"] for x in e["entries"] if x["program"] == prog),

@@ -72,13 +72,12 @@ def _rows(seed: int):
     return (np.stack(rows), np.asarray(pays, np.int32), np.asarray(tots, np.int32), n_random)
 
 
-@pytest.fixture(scope="module", params=PAT_NAMES)
-def jax_scan(request):
-    """The JAX B16 (classes + scan, jitted on XLA:CPU) and the tables."""
+def _jax_b16(jt, KL: int, K: int):
+    """The JAX B16 (classes + scan, jitted on XLA:CPU) at one geometry:
+    (rows, pays, tots) -> (classes_ext, mask, bad, na_overflow)."""
     from tiktoken_tpu.ops.charclass import make_byte_classes_fn, prepare_device_tables
     from tiktoken_tpu.ops.sweep_scan import make_char_scan_fn
 
-    jt, pt, st = _tables(request.param)
     prep = prepare_device_tables(jt)
     classes = jax.jit(make_byte_classes_fn(jt))
     scan = jax.jit(make_char_scan_fn(jt, KL, K))
@@ -91,7 +90,14 @@ def jax_scan(request):
         mask, bad = scan(cls_ext, jnp.asarray(pays), jnp.asarray(tots))
         return np.array(cls_ext), np.asarray(mask), np.asarray(bad), bool(over)
 
-    return run, pt, st
+    return run
+
+
+@pytest.fixture(scope="module", params=PAT_NAMES)
+def jax_scan(request):
+    """The JAX B16 at the test geometry, and the tables."""
+    jt, pt, st = _tables(request.param)
+    return _jax_b16(jt, KL, K), pt, st
 
 
 def test_char_scan_rows_matches_jax_and_numpy(jax_scan):
@@ -139,6 +145,111 @@ def test_na_overflow_only_past_the_cap(jax_scan):
         assert bool(got) == jover == over, len(data)
         np.testing.assert_array_equal(m.numpy(), jm)
         np.testing.assert_array_equal(b.numpy(), jb)
+
+
+def _step_bound():
+    """scripts/scan_step_bound.py, the exact most steps of a walk."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "scan_step_bound.py"
+    spec = importlib.util.spec_from_file_location("scan_step_bound", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _uncapped_steps(st, rows, pays, tots):
+    """The plain walk's steps over rows [B, L], the step cap out of reach."""
+    from tiktoken_tpu_torch.ops.sweep_scan import row_classes, walk_steps
+
+    L = rows.shape[1]
+    t = torch.from_numpy(tots)
+    cls, _ = row_classes(st, torch.from_numpy(rows), t, 2)  # no non-ASCII cap
+    cls = torch.cat([cls, torch.full((len(rows), 3 * L), st.eof_class, dtype=cls.dtype)], 1)
+    return walk_steps(st, cls, torch.from_numpy(pays), t).numpy()
+
+
+def test_walk_step_bound_is_exact(jax_scan):
+    """The dynamic program of scripts/scan_step_bound.py gives the most steps
+    a walk can take over a row of n bytes; the row it builds takes exactly
+    that many in the port's walk. r50k never reaches the step cap 3 * (n + 2);
+    cl100k and o200k pass it from 27 bytes (newlines, tabs and 4-byte digits)."""
+    _run, pt, st = jax_scan
+    sb = _step_bound().StepBound(pt, KL)
+    n = np.arange(KL + 1)
+    for m in (40, KL):
+        row, steps = sb.row(m)
+        assert len(row) == m and steps <= sb.most[m]
+        grid = np.zeros((1, KL), np.uint8)
+        grid[0, :m] = np.frombuffer(row, np.uint8)
+        tot = np.asarray([m], np.int32)
+        assert _uncapped_steps(st, grid, tot, tot)[0] == steps, m
+    if sb.most[KL] <= 3 * KL:  # r50k
+        assert (sb.most[1:] <= 3 * n[1:]).all()
+    else:
+        assert np.nonzero(sb.most > 3 * (n + 2))[0][0] == 27
+
+
+# Rows of the v2 geometry (K = 256, KL = 272), within its non-ASCII cap of 34
+# char ends, whose walks under cl100k and o200k need 1, 2 and 3 steps more
+# than the cap 3 * (KL + 2) = 822: a newline, two tabs and a digit, repeated
+# (x a 4-byte digit, a and d 2- and 3-byte ones). The first two fill a row
+# with a payload of K. STEP_CAP_DOC's lines are rows as pack_documents cuts
+# them (a newline then a letter is a safe split), each needing 825 steps:
+# bad in JAX on the CPU too, finished by its 24-step bodies on the TPU.
+_DIGITS = {"x": "\U0001d7ce", "0": "0", "a": "\u0663", "d": "\u0967"}
+
+
+def _units(digits: str) -> str:
+    return "".join("\n\t\t" + _DIGITS[c] for c in digits)
+
+
+WINDOW_ROWS = (_units("x0xxxxx00xxxx0000xxxxxx0xxxx0xxxxxxxxx0xx0x0"),
+               _units("x0xxx0xxxxxx0xxxxx0dxxx0xx0ax0xxxxd0xxxa0x0d") + "\n")
+STEP_CAP_DOC = ("A" + _units("x00xxx0xxx00dxx0" + "x" * 23) + "\n") * 3
+
+
+@pytest.mark.parametrize("name", PAT_NAMES)
+def test_rows_just_past_the_step_cap(name):
+    """The port and the numpy spec stop a walk after 3 * (KL + 2) steps and
+    call the row bad; the JAX kernel checks its cap between unrolled bodies
+    of 4 steps on the CPU, so at KL = 272 it walks 824 steps and finishes a
+    row that needs 823 or 824. On such rows the port equals the spec, and
+    JAX differs by design with the mask of the uncapped walk; past both caps
+    all three call the row bad; under r50k, which never reaches the cap, all
+    three agree. The documents' ids: test_torch_pipeline2.py."""
+    from tiktoken_tpu_torch.ops.sweep_scan import char_scan_numpy, char_scan_rows
+
+    K2, KL2 = 256, 272
+    jt, pt, st = _tables(name)
+    cap, jax_cap = 3 * (KL2 + 2), -(-3 * (KL2 + 2) // 4) * 4
+    data = [r.encode() for r in WINDOW_ROWS] + [STEP_CAP_DOC.encode()[:KL2]]
+    rows = np.zeros((len(data), KL2), np.uint8)
+    for i, d in enumerate(data):
+        rows[i, : len(d)] = np.frombuffer(d, np.uint8)
+    tots = np.asarray([len(d) for d in data], np.int32)
+    pays = np.full(len(data), K2, np.int32)
+    steps = _uncapped_steps(st, rows, pays, tots)
+    assert tots.tolist() == [KL2] * 3 and steps.tolist() == (
+        [607, 605, 610] if name == "r50k" else [cap + 1, cap + 2, cap + 3])
+    cls_ext, jm, jb, jover = _jax_b16(jt, KL2, K2)(rows, pays, tots)
+    m, b, over = char_scan_rows(st, *(torch.from_numpy(x) for x in (rows, pays, tots)),
+                                K=K2, na_frac=8)
+    assert not jover and not bool(over)
+    wide = np.concatenate([cls_ext, np.full((len(data), 3 * KL2), pt.eof_class, cls_ext.dtype)],
+                          axis=1)
+    for i in range(len(data)):
+        wm, wb = char_scan_numpy(pt, cls_ext[i], K2, KL2, K2)
+        np.testing.assert_array_equal(m[i].numpy(), wm)
+        assert bool(b[i]) == wb == (steps[i] > cap), i
+        if cap < steps[i] <= jax_cap:
+            assert not jb[i]
+            np.testing.assert_array_equal(jm[i], char_scan_numpy(pt, wide[i], K2, KL2, K2)[0])
+        else:  # a row past both caps is bad in both, its mask cut where each stopped
+            assert jb[i] == wb, i
+            if not wb:
+                np.testing.assert_array_equal(jm[i], wm)
 
 
 def test_char_scan_wrapper_rejects_non_cuda_devices():

@@ -239,6 +239,51 @@ def test_compact_matches_jax_and_numpy():
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(jc))
 
 
+@pytest.mark.parametrize("m_cap, l_cap", [(64, 16), (8, 2)])  # roomy, and counts over the caps
+def test_compact_kinds_matches_two_jax_compactions(m_cap, l_cap):
+    from tiktoken_tpu.ops.compaction import compact as jcompact
+
+    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops.compaction import compact_kinds
+
+    rng = np.random.default_rng(11)
+    p, n_pieces = 300, 230
+    lens = rng.integers(0, 80, p).astype(np.int32)
+    lens[n_pieces:] = 0
+    hit = np.where(rng.random(p) < 0.4, -1, rng.integers(0, 5000, p)).astype(np.int32)
+    words = rng.integers(-2**31, 2**31, (p, 4)).astype(np.int32)
+    starts = np.sort(rng.integers(0, 10**6, p)).astype(np.int32)
+    live = np.arange(p) < n_pieces
+    is_miss = live & (lens >= 2) & (lens <= 16) & (hit == -1)
+    is_long = live & (lens > 16) & (lens <= 64)
+    idx = np.arange(p, dtype=np.int32)
+    args = [torch.from_numpy(x) for x in (words, starts, lens, hit)]
+    got = compact_kinds(*args, torch.tensor(n_pieces, dtype=torch.int32), m_cap, l_cap)
+    # the wrapper takes the plain version on CPU tensors
+    got_k = kernels.compact_kinds(*args, torch.tensor(n_pieces, dtype=torch.int32), m_cap, l_cap)
+    for a, b in zip(kernels_flat(got), kernels_flat(got_k), strict=True):
+        assert torch.equal(a, b)
+    (m_words, m_lens, m_pid), n_miss, mslot, (l_starts, l_lens, l_pid), n_long, lslot = got
+    for mask, pays, cap, outs, count, slot in (
+            (is_miss, [*words.T, lens, idx], m_cap, [*m_words.T, m_lens, m_pid], n_miss, mslot),
+            (is_long, [starts, lens, idx], l_cap, [l_starts, l_lens, l_pid], n_long, lslot)):
+        jo, jc = jcompact(jnp.asarray(mask), [jnp.asarray(np.ascontiguousarray(x)) for x in pays],
+                          cap)
+        assert int(count) == int(jc) == int(mask.sum())
+        for g, j in zip(outs, jo, strict=True):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+        np.testing.assert_array_equal(slot.numpy(), np.where(mask, np.cumsum(mask) - 1, -1))
+    if m_cap == 8:
+        assert int(n_miss) > m_cap and int(n_long) > l_cap
+
+
+def kernels_flat(out):
+    """The tensors of a nested tuple of outputs, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in kernels_flat(o)]
+
+
 def test_route_and_expand_match_jax_and_numpy():
     from tiktoken_tpu.ops.compaction import expand as jexpand
     from tiktoken_tpu.ops.compaction import route_right_multi

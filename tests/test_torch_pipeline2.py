@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from tests.helpers import make_encoding, make_mixed_corpus, make_oracle, special_tokens_for
+from tests.test_torch_char_scan import STEP_CAP_DOC
 from tests.helpers import trained_ranks
 
 CJK = "東京タワーは高い。パリは花の都、そして京都は古都です。春はあけぼの、やうやう白くなりゆく山際。"
@@ -174,7 +175,8 @@ def enc():
 
 
 @pytest.mark.parametrize("scanner", ["char", "byte"])
-@pytest.mark.parametrize("corpus", ["mixed", "scripts", "long_runs", "degenerate", "overflow"])
+@pytest.mark.parametrize("corpus", ["mixed", "scripts", "long_runs", "degenerate", "overflow",
+                                    "step_cap"])
 def test_encode_corpus_v2_matches_tiktoken(enc, corpus, scanner):
     texts = {
         "mixed": [make_mixed_corpus(4000, seed=s) for s in range(3)] + ["", "x", "hello world!"],
@@ -183,6 +185,8 @@ def test_encode_corpus_v2_matches_tiktoken(enc, corpus, scanner):
         "degenerate": ["a\n b", "today\n \n", " \n\n\n  x", "\t\t\t", " ", "🌍🚀" * 10,
                        "don't you're it's", "1a" * 600, "? " * 300, "word " * 400],
         "overflow": [random_words(6000, seed=2), make_mixed_corpus(1500, seed=7)],
+        # rows whose char-scan walks pass the step cap (test_torch_char_scan.py)
+        "step_cap": [STEP_CAP_DOC],
     }[corpus]
     eng = enc.engine("cpu")
     before = dict(eng.stats)
@@ -196,6 +200,8 @@ def test_encode_corpus_v2_matches_tiktoken(enc, corpus, scanner):
         assert eng.stats["v1_fallback_chunks"] > before["v1_fallback_chunks"]
     if corpus in ("scripts", "long_runs"):  # hard cuts, >64-byte pieces: host fallback
         assert eng.stats["fallback_docs"] > before["fallback_docs"]
+    if corpus == "step_cap":  # bad rows under the char scan's step cap: host fallback
+        assert eng.stats["fallback_docs"] - before["fallback_docs"] == (scanner == "char")
     tokens, offsets = enc.encode_corpus_to_numpy(texts, device="cpu", pipeline=2,
                                                  scanner=scanner)
     assert tokens.dtype == np.uint32

@@ -1,210 +1,600 @@
-// compaction: stable stream compaction, the piece catalogs, row-wise
-// compaction, slot extraction, monotone routing and the expansion of
-// per-piece token counts into the token stream of a v3 or v2 chunk.
+// compaction: the piece catalogs, the fused short-miss and long
+// compactions (stable stream compaction), row-wise compaction, slot
+// extraction, monotone routing and the expansion of per-piece token counts
+// into the token stream of a v3 or v2 chunk.
 //
 // Replaces (JAX package): ops/compaction.py compact (the piece catalog of
 // ops/pipeline3.py build_pipeline3_fn (B5) with its piece lengths,
 // too-long row flags and canonical word padding, and the short-miss and
-// long compactions of B7/B8 with their slot prefix sums), route_right
-// (pipeline3.py) and ops/compaction.py expand with the token fetch that
-// follows it (B8). Those are scatter-free radix routes, built so because
-// scatters are slow on the TPU. For v2 (B10): ops/pieces.py
+// long compactions of B7/B8 with their kind masks and slot prefix sums),
+// route_right (pipeline3.py) and ops/compaction.py expand with the token
+// fetch that follows it (B8). Those are scatter-free radix routes, built
+// so because scatters are slow on the TPU. For v2 (B10): ops/pieces.py
 // make_catalog_fn and make_extract_fn with the too-long row flags of
 // ops/pipeline2.py (tt_catalog2), its extract_long (tt_extract_slots),
 // and its assembly, the masked scatters of singles, short-miss and long
 // tokens at off + rank with the per-row token counts
-// (tt_expand_tokens_rows: the v3 expansion, whose contract fits, plus
-// the row counts, which it does not give). Plain PyTorch versions:
-// ops/compaction.py catalog, catalog2, compact_slots, compact_rows,
-// extract_slots, route_right, expand_tokens, expand_tokens_rows.
+// (tt_expand_tokens_rows). Plain PyTorch versions: ops/compaction.py
+// catalog, catalog2, compact_kinds, compact_rows, extract_slots,
+// route_right, expand_tokens, expand_tokens_rows.
 //
 // What bounds it on the H100: bytes. A chunk's catalog reads ~7.3 M mask
-// bytes and writes up to ~1.5 M entries of 24 bytes; the other entry
-// points move less.
+// bytes (v2 8.4 M) and writes its p_cap entries of 24 bytes; the other
+// entry points move less.
 //
 // Design: the GPU form of the monotone routes is a prefix sum plus a
-// scatter. Three passes: per-tile sums of the valid flags (or counts),
-// one block scanning the tile sums into tile offsets and the total, then
-// each tile's block-level exclusive scan and scatter. The scatter pass
-// also writes each entry's slot (its exclusive prefix), so no caller
-// recomputes it. Slots past the count are zero-filled by a last pass that
-// reads the count on the device, so no pass waits for the host; the
-// catalog's last pass also measures each piece and pads its words.
-// Row-wise compaction (16 or 64 lanes) runs one thread per row.
+// scatter, done in one pass by decoupled look-back (one_pass_kernel).
+// Each block claims the next tile of 4096 items from a counter and
+// 1. reads the items' values, neighbouring threads on neighbouring items,
+//    into shared memory;
+// 2. sums each thread's run of 16 neighbouring items, scans the sums over
+//    the block, publishes the tile's aggregate, then its inclusive prefix,
+//    in a status word per tile; one warp looks back over its
+//    predecessors' words for the tile's offset;
+// 3. gives each item its offset, neighbouring threads on neighbouring
+//    items: the slots of the kind compactions, the expansion's token runs
+//    (each piece writes its tokens); and lists the tile's entries in
+//    shared memory;
+// 4. writes the tile's entries, neighbouring threads on neighbouring
+//    entries: the compacted pieces; the catalogs' pieces, measured to
+//    the next start in their row (the next entry of the tile, or past the
+//    tile's end from the mask), flagged when too long and padded to
+//    words.
+// Blocks that claim a number past the last tile wait until every tile is
+// done, then zero the outputs past the count (each entry keeps its
+// zero-filled tail) and finish the per-row outputs (row_bad, row counts)
+// from the scratch. The scratch (counters, status words, per-row flags
+// and counts) is cleared by one cudaMemsetAsync per call.
+// tt_compact_kinds makes the short-miss and long compactions of one
+// catalog one such pass, its two counts packed in one 62-bit status.
+// Row-wise compaction (16 or 64 lanes) runs a warp per row (two per warp
+// at 16) by ballots.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int TPB = 256;  // threads per tile block
-constexpr int IPT = 8;    // items per thread
+constexpr int IPT = 16;   // items per thread
 constexpr int TILE = TPB * IPT;
-constexpr int MAX_PAY = 6;
+constexpr int TAIL = TPB * 16;  // output entries zeroed per tail block
 constexpr int SLOT = 16;       // ops/pieces.py SLOT
 constexpr int LONG_SLOT = 64;  // ops/pieces.py LONG_SLOT
 
-// up to MAX_PAY int32 payloads, each of width[k] ints per entry
-struct Payloads {
-  const int* in[MAX_PAY];
-  int* out[MAX_PAY];
-  int width[MAX_PAY];
-  int n;
-};
+// the scratch words of a one-pass launch: the tile counter, the count of
+// finished tiles, the total, one catalog entry kept for the tail, one
+// status word per tile, then the entry's per-row words
+constexpr int SCRATCH_HEAD = 4;
+constexpr unsigned long long FLAG_AGGREGATE = 1ull << 62;
+constexpr unsigned long long FLAG_PREFIX = 2ull << 62;
+constexpr unsigned long long VALUE_MASK = FLAG_AGGREGATE - 1;
+constexpr long long LOW31 = (1ll << 31) - 1;
 
-// item value: valid flag (compaction) or count (expansion)
-struct FlagItems {
-  const uint8_t* v;
-  __device__ long long operator()(long long i) const { return v[i] != 0; }
-};
-struct CountItems {
-  const int* v;
-  __device__ long long operator()(long long i) const { return v[i]; }
-};
-
-template <class Items>
-__global__ void __launch_bounds__(TPB) tile_sums_kernel(Items items, long long n, long long* tile_sum) {
-  const long long base = static_cast<long long>(blockIdx.x) * TILE + threadIdx.x * IPT;
-  long long s = 0;
-#pragma unroll
-  for (int j = 0; j < IPT; ++j)
-    if (base + j < n) s += items(base + j);
-  long long total;
-  tt::block_excl_scan<TPB>(s, &total);
-  if (threadIdx.x == 0) tile_sum[blockIdx.x] = total;
+__device__ __forceinline__ unsigned long long load_volatile(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
-// one block: exclusive scan of the tile sums in place, total to *total
-__global__ void __launch_bounds__(1024) scan_tiles_kernel(long long* tile_sum, int n_tiles, int* total) {
-  long long carry = 0;
-  for (int base = 0; base < n_tiles; base += 1024) {
-    const int i = base + threadIdx.x;
-    const long long v = i < n_tiles ? tile_sum[i] : 0;
-    long long chunk;
-    const long long excl = tt::block_excl_scan<1024>(v, &chunk);
-    if (i < n_tiles) tile_sum[i] = carry + excl;
-    carry += chunk;
-  }
-  if (threadIdx.x == 0) *total = static_cast<int>(carry);
+__device__ __forceinline__ void store_volatile(unsigned long long* p, unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
 }
 
-// stable compaction: valid item i goes to slot (tile offset + exclusive
-// prefix within the tile); only slots < out_size are written. With a
-// slot array, every item gets its slot there (-1 where not valid).
-template <class Emit>
-__global__ void __launch_bounds__(TPB) scatter_kernel(const uint8_t* __restrict__ valid, long long n,
-                                                      const long long* __restrict__ tile_off,
-                                                      long long out_size, Emit emit,
-                                                      int* __restrict__ slot) {
-  const long long base = static_cast<long long>(blockIdx.x) * TILE + threadIdx.x * IPT;
-  uint8_t v[IPT];
-  long long s = 0;
-#pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    v[j] = (base + j < n) ? (valid[base + j] != 0) : 0;
-    s += v[j];
+// shared-memory index of tile item li, padded so that a thread's run of
+// IPT items and a warp's 32 neighbouring items both fall on distinct banks
+__device__ __forceinline__ int pad(int li) { return li + (li >> 5); }
+
+// The exclusive prefix of tile `tile` whose items sum to `aggregate`, by
+// decoupled look-back over status[0..tile). Every thread calls it.
+__device__ long long tile_prefix(unsigned long long* status, int tile, long long aggregate) {
+  __shared__ long long s_prefix;
+  if (threadIdx.x == 0) {
+    store_volatile(status + tile, (tile == 0 ? FLAG_PREFIX : FLAG_AGGREGATE) |
+                                      static_cast<unsigned long long>(aggregate));
+    if (tile == 0) s_prefix = 0;
   }
-  long long total;
-  long long dst = tile_off[blockIdx.x] + tt::block_excl_scan<TPB>(s, &total);
+  if (tile > 0 && threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    long long excl = 0;
+    for (int look = tile - 1;; look -= 32) {
+      const int idx = look - lane;
+      unsigned long long st = idx >= 0 ? load_volatile(status + idx) : FLAG_PREFIX;
+      while (__any_sync(0xffffffffu, (st >> 62) == 0)) {
+        if ((st >> 62) == 0) st = load_volatile(status + idx);
+      }
+      const unsigned prefix_lanes = __ballot_sync(0xffffffffu, (st >> 62) == 2);
+      const int stop = prefix_lanes ? __ffs(prefix_lanes) - 1 : 31;  // the nearest prefix
+      long long v = lane <= stop ? static_cast<long long>(st & VALUE_MASK) : 0;
 #pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    if (slot != nullptr && base + j < n) slot[base + j] = v[j] ? static_cast<int>(dst) : -1;
-    if (v[j]) {
-      if (dst < out_size) emit(base + j, dst);
-      ++dst;
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      excl += v;
+      if (prefix_lanes) break;
+    }
+    if (lane == 0) {
+      store_volatile(status + tile,
+                     FLAG_PREFIX | static_cast<unsigned long long>(excl + aggregate));
+      s_prefix = excl;
     }
   }
+  __syncthreads();
+  return s_prefix;
 }
 
-struct FlatEmit {
-  Payloads p;
-  __device__ void operator()(long long i, long long dst) const {
-    for (int k = 0; k < p.n; ++k) {
-      const int w = p.width[k];
-      for (int c = 0; c < w; ++c) p.out[k][dst * w + c] = p.in[k][i * w + c];
-    }
-  }
+// The tile's shared memory: each item's value, then its offset in the
+// tile; and the item of each of the tile's entries.
+struct TileSmem {
+  uint32_t val[TILE + TILE / 32];
+  uint16_t idx[TILE];
 };
 
-// the catalog: grid position i = row * KP + col of the start mask ->
-// flat row index row * KL + col
-struct CatalogEmit {
-  int KL, KP;
-  int* starts;
-  __device__ void operator()(long long i, long long dst) const {
-    const long long r = i / KP;
-    starts[dst] = static_cast<int>(r * KL + (i - r * KP));
-  }
+// Defaults of a one-pass op. An op gives each item's value (value), its
+// tile-local sums widened to the status format (widen), sees each
+// thread's run of items (run), gives each item its offset (emit), writes
+// the tile's entries (entries), receives the total (total) and finishes
+// tail block k once every tile is done (tail).
+struct OpBase {
+  __device__ long long widen(long long local) const { return local; }
+  __device__ void run(long long, const uint32_t*, long long) const {}
+  __device__ void entries(long long, long long, uint32_t, const TileSmem&, long long) const {}
 };
 
-// zero every output slot at or past the device-side count
-__global__ void fill_tail_kernel(const int* __restrict__ count, long long out_size, Payloads p) {
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= out_size || j < *count) return;
-  for (int k = 0; k < p.n; ++k)
-    for (int w = 0; w < p.width[k]; ++w) p.out[k][j * p.width[k] + w] = 0;
-}
-
-__global__ void copy_flags_kernel(const uint8_t* __restrict__ in, int n, uint8_t* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = in[i] != 0;
-}
-
-// catalog entry j: its length (to the next start in its row, else to the
-// row's scan end spec_f), the too-long flag of its row, and its first
-// 16 bytes as 4 little-endian words, zero past min(len, 16) and past the
-// row; entries at or past the count are zero. The next start reads as 0
-// past the count, as in the JAX program's zero-filled catalog.
-__global__ void catalog_finish_kernel(const int* __restrict__ count, long long out_size,
-                                      const uint8_t* __restrict__ rows, int C, int KL,
-                                      const int* __restrict__ spec_f, int* __restrict__ starts,
-                                      int* __restrict__ lens, uint32_t* __restrict__ words,
-                                      uint8_t* __restrict__ row_bad) {
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= out_size) return;
-  const long long n = *count;
-  if (j >= n) {
-    starts[j] = 0;
-    lens[j] = 0;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) words[j * 4 + w] = 0;
+// One pass of a stable prefix sum with its scatter (see the file's
+// comment). Launch n_tiles + n_tail blocks of TPB; at least four blocks
+// stay resident per SM (at most 64 registers a thread), so a launch's
+// first wave covers ~530 tiles.
+template <class Op>
+__global__ void __launch_bounds__(TPB, 4) one_pass_kernel(Op op, long long n, int n_tiles,
+                                                         unsigned long long* scratch) {
+  __shared__ TileSmem sm;
+  __shared__ int s_tile;
+  if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(scratch, 1ull));
+  __syncthreads();
+  const int tile = s_tile;
+  if (tile >= n_tiles) {  // claimed after every tile: they all run or ran
+    if (threadIdx.x == 0)
+      while (load_volatile(scratch + 1) < static_cast<unsigned long long>(n_tiles)) __nanosleep(64);
+    __syncthreads();
+    __threadfence();
+    op.tail(tile - n_tiles, static_cast<long long>(load_volatile(scratch + 2)));
     return;
   }
-  const int s = starts[j];
-  const int prow = s / KL;
-  int end = prow * KL + spec_f[min(max(prow, 0), C - 1)];
-  if (j + 1 < out_size) {
-    const int ns = j + 1 < n ? starts[j + 1] : 0;
-    if (ns / KL == prow) end = ns;
+  const long long base = static_cast<long long>(tile) * TILE;
+  // 1. values, neighbouring threads on neighbouring items
+  uint32_t v[IPT];
+#pragma unroll
+  for (int j = 0; j < IPT; ++j) {
+    const int li = j * TPB + threadIdx.x;
+    v[j] = base + li < n ? op.value(base + li) : 0u;
+    sm.val[pad(li)] = v[j];
   }
-  const int len = end - s;
-  lens[j] = len;
-  if (len > LONG_SLOT) row_bad[prow] = 1;
-  const int nb = min(max(len, 0), SLOT);
-  const int col = s - prow * KL;
-  const uint8_t* row = rows + static_cast<long long>(prow) * KL;
+  __syncthreads();
+  // 2. each thread's run, scanned over the block and the tiles before
+  const int r0 = threadIdx.x * IPT;
+  uint32_t run[IPT];
+  long long sum = 0;
 #pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    uint32_t word = 0;
+  for (int j = 0; j < IPT; ++j) {
+    run[j] = sm.val[pad(r0 + j)];
+    sum += run[j];
+  }
+  op.run(base + r0, run, n);
+  long long aggregate;
+  const long long excl = tt::block_excl_scan<TPB>(sum, &aggregate);
+  const long long prefix = tile_prefix(scratch + SCRATCH_HEAD, tile, op.widen(aggregate));
+  uint32_t off = static_cast<uint32_t>(excl);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = 4 * w + b;
-      if (c < nb && col + c < KL) word |= static_cast<uint32_t>(row[col + c]) << (8 * b);
+  for (int j = 0; j < IPT; ++j) {
+    sm.val[pad(r0 + j)] = off;
+    off += run[j];
+  }
+  __syncthreads();
+  // 3. each item at its offset, neighbouring threads on neighbouring items
+#pragma unroll
+  for (int j = 0; j < IPT; ++j) {
+    const int li = j * TPB + threadIdx.x;
+    if (base + li < n) op.emit(base + li, li, sm.val[pad(li)], v[j], prefix, sm);
+  }
+  __syncthreads();
+  // 4. the tile's entries, neighbouring threads on neighbouring entries
+  op.entries(base, prefix, static_cast<uint32_t>(aggregate), sm, n);
+  __threadfence();  // this tile's writes before its count of finished tiles
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (tile == n_tiles - 1) {
+      const long long total = prefix + op.widen(aggregate);
+      store_volatile(scratch + 2, static_cast<unsigned long long>(total));
+      op.total(total);
+      __threadfence();
     }
-    words[j * 4 + w] = word;
+    atomicAdd(scratch + 1, 1ull);
   }
 }
 
-// row-wise compaction with the count of each row
+// [lo, hi) of tail chunk k over out_size entries past the total
+__device__ __forceinline__ void tail_range(int k, long long total, long long out_size,
+                                           long long& lo, long long& hi) {
+  lo = max(static_cast<long long>(k) * TAIL, total);
+  hi = min(static_cast<long long>(k + 1) * TAIL, out_size);
+}
+
+__host__ __device__ int tail_blocks(long long out_size) {
+  return static_cast<int>((out_size + TAIL - 1) / TAIL);
+}
+
+int n_tiles_of(long long n) { return static_cast<int>((n + TILE - 1) / TILE); }
+
+unsigned blocks_of(long long n, int tpb) { return static_cast<unsigned>((n + tpb - 1) / tpb); }
+
+long long scratch_words(long long n, long long row_bytes) {
+  return SCRATCH_HEAD + n_tiles_of(n) + (row_bytes + 7) / 8;
+}
+
+// the entry's per-row words in the scratch, past the status words
+void* row_scratch(void* scratch, long long n) {
+  return static_cast<unsigned long long*>(scratch) + SCRATCH_HEAD + n_tiles_of(n);
+}
+
+// clears the scratch and launches the pass over n items
+template <class Op>
+int one_pass(const Op& op, long long n, long long row_bytes, int n_tail, void* scratch,
+             cudaStream_t st) {
+  const int nt = n_tiles_of(n);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, scratch_words(n, row_bytes) * 8, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  one_pass_kernel<<<nt + n_tail, TPB, 0, st>>>(op, n, nt,
+                                               static_cast<unsigned long long*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first min(len, 16) bytes of the piece at column col of a row of KL
+// bytes at byte offset row_at of rows (C * KL bytes), as 4 little-endian
+// words, zero after them and past the row: five aligned word loads and
+// funnel shifts where rows are 4-byte aligned and KL a multiple of 4,
+// else byte loads.
+__device__ __forceinline__ uint4 piece_words(const uint8_t* __restrict__ rows, long long n_bytes,
+                                             long long row_at, int col, int KL, int len) {
+  const int nb = min(min(max(len, 0), SLOT), KL - col);  // bytes kept
+  if (nb <= 0) return make_uint4(0, 0, 0, 0);
+  const long long at = row_at + col;
+  if ((KL & 3) | (reinterpret_cast<uintptr_t>(rows) & 3)) {
+    uint32_t b[4] = {0, 0, 0, 0};
+    for (int c = 0; c < nb; ++c) b[c >> 2] |= static_cast<uint32_t>(rows[at + c]) << (8 * (c & 3));
+    return make_uint4(b[0], b[1], b[2], b[3]);
+  }
+  const long long al = at & ~3ll;
+  const int sh = static_cast<int>(at - al) * 8;
+  const uint32_t* w32 = reinterpret_cast<const uint32_t*>(rows);
+  const long long n_words = n_bytes / 4;
+  uint32_t a[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const long long wi = al / 4 + k;
+    a[k] = wi < n_words ? __ldg(w32 + wi) : 0u;
+  }
+  uint32_t out[4];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const uint32_t word = __funnelshift_r(a[w], a[w + 1], sh);
+    const int keep = min(max(nb - 4 * w, 0), 4);  // bytes of this word kept
+    out[w] = keep == 4 ? word : word & ((1u << (8 * keep)) - 1);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// the first set flag of mask in [from, to), -1 if none
+__device__ __forceinline__ long long next_set(const uint8_t* mask, long long from, long long to) {
+  for (long long c = from; c < to; ++c)
+    if (mask[c]) return c;
+  return -1;
+}
+
+// The item after entry k of a catalog tile: the tile's next entry, else
+// the next set flag of the mask before `row_end` past the tile; -1 if
+// none before row_end.
+__device__ __forceinline__ long long next_item(const uint8_t* mask, long long base, long long i,
+                                               int k, uint32_t agg, const TileSmem& sm,
+                                               long long row_end) {
+  const long long ni = k + 1 < static_cast<int>(agg)
+                           ? base + sm.idx[k + 1]
+                           : next_set(mask, max(i + 1, base + TILE), row_end);
+  return ni < row_end ? ni : -1;
+}
+
+// row_bad_out = row_bad | flags for the rows of tail block k
+__device__ __forceinline__ void finish_rows(int k, int C, const uint8_t* row_bad,
+                                            const uint8_t* flags, uint8_t* row_bad_out) {
+  const int hi = min((k + 1) * TAIL, C);
+  for (int r = k * TAIL + threadIdx.x; r < hi; r += TPB) row_bad_out[r] = row_bad[r] | flags[r];
+}
+
+// v3 catalog over mask [C, KP] of rows [C, KL]: entry j = start r * KL +
+// col, its length to the next start of its row, else to the row's scan
+// end spec_f; as in the JAX program's zero-filled catalog, the next start
+// reads as 0 past the count, which the last entry of row 0 can see: that
+// entry waits for the tail. Too-long pieces flag their rows in flags
+// (scratch); the tail ORs them into row_bad.
+struct CatalogOp : OpBase {
+  const uint8_t* mask;
+  int C, KP, KL;
+  const uint8_t* rows;
+  const int* spec_f;
+  const uint8_t* row_bad;
+  long long out_size;
+  int *starts, *lens;
+  uint4* words;
+  uint8_t *flags, *row_bad_out;
+  unsigned long long* keep;  // the kept entry of row 0
+  int* count;
+  __device__ uint32_t value(long long i) const { return mask[i] != 0; }
+  __device__ void emit(long long, int li, uint32_t off, uint32_t v, long long, TileSmem& sm) const {
+    if (v) sm.idx[off] = static_cast<uint16_t>(li);
+  }
+  __device__ void finish(long long d, int r, int col, int end) const {
+    const int len = end - (r * KL + col);
+    lens[d] = len;
+    if (len > LONG_SLOT) flags[r] = 1;
+    words[d] = piece_words(rows, static_cast<long long>(C) * KL, static_cast<long long>(r) * KL,
+                           col, KL, len);
+  }
+  __device__ void entries(long long base, long long prefix, uint32_t agg, const TileSmem& sm,
+                          long long) const {
+    for (int k = threadIdx.x; k < static_cast<int>(agg); k += TPB) {
+      const long long d = prefix + k;
+      if (d >= out_size) break;
+      const long long i = base + sm.idx[k];
+      const int r = static_cast<int>(i / KP);
+      const int col = static_cast<int>(i - static_cast<long long>(r) * KP);
+      starts[d] = r * KL + col;
+      const long long ni = next_item(mask, base, i, k, agg, sm, static_cast<long long>(r + 1) * KP);
+      if (d + 1 < out_size && ni >= 0) {
+        finish(d, r, col, r * KL + static_cast<int>(ni - static_cast<long long>(r) * KP));
+      } else if (d + 1 < out_size && r == 0) {
+        store_volatile(keep, (static_cast<unsigned long long>(d + 1) << 32) | col);
+      } else {
+        finish(d, r, col, r * KL + spec_f[r]);
+      }
+    }
+  }
+  __device__ void total(long long t) const { *count = static_cast<int>(t); }
+  __device__ void tail(int k, long long total) const {
+    if (k == 0) {
+      if (threadIdx.x == 0) {
+        const unsigned long long kept = load_volatile(keep);
+        if (kept) {  // the last entry of row 0, with no next start in its row
+          const long long d = static_cast<long long>(kept >> 32) - 1;
+          const int col = static_cast<int>(kept & 0xFFFFFFFFu);
+          finish(d, 0, col, d + 1 < total ? spec_f[0] : 0);
+        }
+      }
+      __syncthreads();
+    }
+    finish_rows(k, C, row_bad, flags, row_bad_out);
+    long long lo, hi;
+    tail_range(k, total, out_size, lo, hi);
+    for (long long j = lo + threadIdx.x; j < hi; j += TPB) {
+      starts[j] = 0;
+      lens[j] = 0;
+      words[j] = make_uint4(0, 0, 0, 0);
+    }
+  }
+};
+
+// v2 catalog over the start grid [C, K] of rows [C, KL]: entry j = flat
+// grid index i, its length to the next start of its row, capped at the
+// row's payload end; C*K past the count. Too-long pieces flag their rows
+// as in CatalogOp.
+struct Catalog2Op : OpBase {
+  const uint8_t* mask;
+  int C, K, KL;
+  const uint8_t* rows;
+  const int* n_payload;
+  const uint8_t* row_bad;
+  long long out_size;
+  int *starts, *lens;
+  uint4* words;
+  uint8_t *flags, *row_bad_out;
+  int* count;
+  __device__ uint32_t value(long long i) const { return mask[i] != 0; }
+  __device__ void emit(long long, int li, uint32_t off, uint32_t v, long long, TileSmem& sm) const {
+    if (v) sm.idx[off] = static_cast<uint16_t>(li);
+  }
+  __device__ void entries(long long base, long long prefix, uint32_t agg, const TileSmem& sm,
+                          long long) const {
+    for (int k = threadIdx.x; k < static_cast<int>(agg); k += TPB) {
+      const long long d = prefix + k;
+      if (d >= out_size) break;
+      const long long i = base + sm.idx[k];
+      const int r = static_cast<int>(i / K);
+      const int col = static_cast<int>(i - static_cast<long long>(r) * K);
+      starts[d] = static_cast<int>(i);
+      const long long ni = next_item(mask, base, i, k, agg, sm, static_cast<long long>(r + 1) * K);
+      const int row_end = n_payload[r];
+      const int end = (d + 1 < out_size && ni >= 0)
+                          ? min(static_cast<int>(ni - static_cast<long long>(r) * K), row_end)
+                          : row_end;
+      const int len = max(end - col, 0);
+      lens[d] = len;
+      if (len > LONG_SLOT) flags[r] = 1;
+      words[d] = piece_words(rows, static_cast<long long>(C) * KL, static_cast<long long>(r) * KL,
+                             col, KL, len);
+    }
+  }
+  __device__ void total(long long t) const { *count = static_cast<int>(t); }
+  __device__ void tail(int k, long long total) const {
+    finish_rows(k, C, row_bad, flags, row_bad_out);
+    long long lo, hi;
+    tail_range(k, total, out_size, lo, hi);
+    const int N = C * K;
+    for (long long j = lo + threadIdx.x; j < hi; j += TPB) {
+      starts[j] = N;
+      lens[j] = 0;
+      words[j] = make_uint4(0, 0, 0, 0);
+    }
+  }
+};
+
+// The short-miss and long compactions of one catalog: item i (live below
+// n_pieces) is a short miss (2 <= len <= 16, no whole-piece hit) or long
+// (16 < len <= 64). A tile's value is miss << 16 | long; the status
+// packs the counts as miss << 31 | long. The tile lists its misses from
+// the front of its entry list and its long pieces from the back.
+struct KindsOp : OpBase {
+  const int *lens, *hit, *n_pieces;
+  const uint4* words;
+  const int* starts;
+  long long m_cap, l_cap;
+  uint4* m_words;
+  int *m_lens, *m_pid, *l_starts, *l_lens, *l_pid, *mslot, *lslot, *n_miss, *n_long;
+  __device__ uint32_t value(long long i) const {
+    if (i >= __ldg(n_pieces)) return 0u;
+    const int L = lens[i];
+    const bool miss = L >= 2 && L <= SLOT && hit[i] == -1;
+    const bool lng = L > SLOT && L <= LONG_SLOT;
+    return (static_cast<uint32_t>(miss) << 16) | lng;
+  }
+  __device__ long long widen(long long local) const {
+    return ((local >> 16) << 31) | (local & 0xFFFF);
+  }
+  __device__ void emit(long long i, int li, uint32_t off, uint32_t v, long long prefix,
+                       TileSmem& sm) const {
+    const uint32_t om = off >> 16, ol = off & 0xFFFF;
+    mslot[i] = (v >> 16) ? static_cast<int>((prefix >> 31) + om) : -1;
+    lslot[i] = (v & 1) ? static_cast<int>((prefix & LOW31) + ol) : -1;
+    if (v >> 16) sm.idx[om] = static_cast<uint16_t>(li);
+    if (v & 1) sm.idx[TILE - 1 - ol] = static_cast<uint16_t>(li);
+  }
+  __device__ void entries(long long base, long long prefix, uint32_t agg, const TileSmem& sm,
+                          long long) const {
+    const int am = static_cast<int>(agg >> 16), al = static_cast<int>(agg & 0xFFFF);
+    for (int k = threadIdx.x; k < am + al; k += TPB) {
+      if (k < am) {
+        const long long mo = (prefix >> 31) + k;
+        if (mo >= m_cap) continue;
+        const long long i = base + sm.idx[k];
+        m_words[mo] = words[i];
+        m_lens[mo] = lens[i];
+        m_pid[mo] = static_cast<int>(i);
+      } else {
+        const long long lo = (prefix & LOW31) + (k - am);
+        if (lo >= l_cap) continue;
+        const long long i = base + sm.idx[TILE - 1 - (k - am)];
+        l_starts[lo] = starts[i];
+        l_lens[lo] = lens[i];
+        l_pid[lo] = static_cast<int>(i);
+      }
+    }
+  }
+  __device__ void total(long long t) const {
+    *n_miss = static_cast<int>(t >> 31);
+    *n_long = static_cast<int>(t & LOW31);
+  }
+  __device__ void tail(int k, long long total) const {
+    const int km = tail_blocks(m_cap);
+    long long lo, hi;
+    if (k < km) {
+      tail_range(k, total >> 31, m_cap, lo, hi);
+      for (long long j = lo + threadIdx.x; j < hi; j += TPB) {
+        m_words[j] = make_uint4(0, 0, 0, 0);
+        m_lens[j] = 0;
+        m_pid[j] = 0;
+      }
+    } else {
+      tail_range(k - km, total & LOW31, l_cap, lo, hi);
+      for (long long j = lo + threadIdx.x; j < hi; j += TPB) {
+        l_starts[j] = 0;
+        l_lens[j] = 0;
+        l_pid[j] = 0;
+      }
+    }
+  }
+};
+
+// Expansion: piece i owns the run [off, off + counts[i]) of the token
+// stream (counts non-negative), written where the piece gets its offset,
+// neighbouring threads on neighbouring pieces. A combo with bit 31 set
+// carries a single piece's token; otherwise token k of the run is
+// src[combo + k], src being m_tok then l_tok. With row_sums, each row's
+// token count: piece i adds counts[i] to row min(starts[i] / K, n_rows -
+// 1), summed over each thread's run of items of one row (the catalog is
+// row-ordered), one atomicAdd per run into the scratch, which the tail
+// copies out.
+struct ExpandOp : OpBase {
+  const int *counts, *combo, *m_tok, *l_tok;
+  long long n_m, n_l, out_size;
+  int* tok;
+  int* total_out;
+  const int* starts;
+  int K, n_rows;
+  int* row_sums;  // scratch
+  int* row_counts;
+  __device__ uint32_t value(long long i) const { return static_cast<uint32_t>(counts[i]); }
+  __device__ void run(long long first, const uint32_t* v, long long n) const {
+    if (row_sums == nullptr) return;
+    int row = -1;
+    uint32_t sum = 0;
+#pragma unroll
+    for (int j = 0; j < IPT; ++j) {
+      if (first + j >= n || v[j] == 0) continue;
+      const int r = min(max(starts[first + j], 0) / K, n_rows - 1);
+      if (r != row) {
+        if (sum) atomicAdd(row_sums + row, static_cast<int>(sum));
+        sum = 0;
+        row = r;
+      }
+      sum += v[j];
+    }
+    if (sum) atomicAdd(row_sums + row, static_cast<int>(sum));
+  }
+  __device__ void emit(long long i, int, uint32_t off, uint32_t v, long long prefix,
+                       TileSmem&) const {
+    if (v == 0) return;
+    const int cb = combo[i];
+    const int low = cb & 0x7FFFFFFF;
+    const long long last = n_m + n_l - 1;
+    const long long o = prefix + off;
+    for (uint32_t k = 0; k < v && o + k < out_size; ++k) {
+      int t = low;
+      if (cb >= 0) {
+        const long long idx = min(static_cast<long long>(low) + k, last);
+        t = idx < n_m ? m_tok[idx] : l_tok[idx - n_m];
+      }
+      tok[o + k] = t;
+    }
+  }
+  __device__ void total(long long t) const { *total_out = static_cast<int>(t); }
+  __device__ void tail(int k, long long total) const {
+    if (row_sums != nullptr) {
+      const int hi = min((k + 1) * TAIL, n_rows);
+      for (int r = k * TAIL + threadIdx.x; r < hi; r += TPB) row_counts[r] = row_sums[r];
+    }
+    long long lo, hi;
+    tail_range(k, total, out_size, lo, hi);
+    for (long long j = lo + threadIdx.x; j < hi; j += TPB) tok[j] = 0;
+  }
+};
+
+// Row-wise compaction with the count of each row: `seg` lanes per row
+// (W when W divides 32, else 32), 32 / seg rows per warp; each lane takes
+// a column of its row per round, a ballot ranks the valid ones.
 __global__ void compact_rows_kernel(const uint8_t* __restrict__ valid, const int* __restrict__ vals,
-                                    int M, int W, int* __restrict__ out, int* __restrict__ counts) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const long long base = static_cast<long long>(m) * W;
+                                    int M, int W, int seg, int* __restrict__ out,
+                                    int* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const long long m = warp * (32 / seg) + lane / seg;
+  const int sl = lane % seg;
+  const unsigned seg_bits = (seg == 32 ? 0xffffffffu : (1u << seg) - 1) << (lane / seg * seg);
+  const bool row_ok = m < M;
+  const long long base = m * W;
   int c = 0;
-  for (int w = 0; w < W; ++w)
-    if (valid[base + w]) out[base + c++] = vals[base + w];
-  counts[m] = c;
-  for (; c < W; ++c) out[base + c] = 0;
+  for (int c0 = 0; c0 < W; c0 += seg) {
+    const int col = c0 + sl;
+    const bool v = row_ok && col < W && valid[base + col];
+    const unsigned b = __ballot_sync(0xffffffffu, v) & seg_bits;
+    if (v) out[base + c + __popc(b & ((1u << lane) - 1))] = vals[base + col];
+    c += __popc(b);
+  }
+  if (!row_ok) return;
+  for (int col = c + sl; col < W; col += seg) out[base + col] = 0;
+  if (sl == 0) counts[m] = c;
 }
 
 __global__ void route_kernel(const int* __restrict__ dst, const int* __restrict__ vals, int n,
@@ -213,97 +603,6 @@ __global__ void route_kernel(const int* __restrict__ dst, const int* __restrict_
   if (i >= n) return;
   const int d = dst[i];
   if (d >= 0 && d < out_size) out[d] = vals[i];
-}
-
-// expansion: piece i writes its run [off, off + counts[i]) of tokens. A
-// combo with bit 31 set carries a single piece's token; otherwise token
-// k of the run is src[combo + k], src being m_tok then l_tok.
-__global__ void __launch_bounds__(TPB) expand_tokens_kernel(
-    const int* __restrict__ counts, const int* __restrict__ combo, long long n,
-    const long long* __restrict__ tile_off, const int* __restrict__ m_tok, long long n_m,
-    const int* __restrict__ l_tok, long long n_l, long long out_size, int* __restrict__ tok) {
-  const long long base = static_cast<long long>(blockIdx.x) * TILE + threadIdx.x * IPT;
-  int c[IPT];
-  long long s = 0;
-#pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    c[j] = (base + j < n) ? counts[base + j] : 0;
-    s += c[j];
-  }
-  long long total;
-  long long off = tile_off[blockIdx.x] + tt::block_excl_scan<TPB>(s, &total);
-  const long long last = n_m + n_l - 1;
-#pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    if (c[j] > 0) {
-      const int cb = combo[base + j];
-      const int low = cb & 0x7FFFFFFF;
-      for (int k = 0; k < c[j] && off + k < out_size; ++k) {
-        int t = low;
-        if (cb >= 0) {
-          const long long idx = min(static_cast<long long>(low) + k, last);
-          t = idx < n_m ? m_tok[idx] : l_tok[idx - n_m];
-        }
-        tok[off + k] = t;
-      }
-    }
-    off += c[j];
-  }
-}
-
-__global__ void expand_tail_kernel(const int* __restrict__ total, long long out_size, int* __restrict__ tok) {
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= out_size || j < *total) return;
-  tok[j] = 0;
-}
-
-// the v2 catalog: grid position i = row * K + col is its own flat index
-struct Catalog2Emit {
-  int* starts;
-  __device__ void operator()(long long i, long long dst) const { starts[dst] = static_cast<int>(i); }
-};
-
-// v2 catalog entry j: C*K past the count; its length runs to the next
-// start, capped at its row's payload end; its row is flagged when the
-// piece is longer than LONG_SLOT; its first min(len, 16) bytes from the
-// row as 4 little-endian words, zero after
-__global__ void catalog2_finish_kernel(const int* __restrict__ count, long long out_size,
-                                       const uint8_t* __restrict__ rows, int C, int K, int KL,
-                                       const int* __restrict__ n_payload, int* __restrict__ starts,
-                                       int* __restrict__ lens, uint32_t* __restrict__ words,
-                                       uint8_t* __restrict__ row_bad) {
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= out_size) return;
-  const long long N = static_cast<long long>(C) * K;
-  const long long n = *count;
-  if (j >= n) {
-    starts[j] = static_cast<int>(N);
-    lens[j] = 0;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) words[j * 4 + w] = 0;
-    return;
-  }
-  const int s = starts[j];
-  const long long next = (j + 1 < n && j + 1 < out_size) ? starts[j + 1] : N;
-  const int prow = min(s / K, C - 1);
-  const long long row_end = static_cast<long long>(prow) * K + n_payload[prow];
-  const long long end = min(next > s ? next : N, row_end);
-  const int len = static_cast<int>(max(end - s, 0LL));
-  lens[j] = len;
-  if (len > LONG_SLOT) row_bad[prow] = 1;
-  const int nb = min(len, SLOT);
-  const int col = s - prow * K;
-  const uint8_t* row = rows + static_cast<long long>(prow) * KL;
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = 4 * w + b;
-      if (c < nb && col + c < KL) word |= static_cast<uint32_t>(row[col + c]) << (8 * b);
-    }
-    words[j * 4 + w] = word;
-  }
 }
 
 // slot extraction: word w of piece i = its bytes 4w..4w+3 from its row,
@@ -332,78 +631,85 @@ __global__ void extract_slots_kernel(const uint8_t* __restrict__ rows, int C, in
   out[t] = word;
 }
 
-// per-row token counts: piece i adds counts[i] to row min(starts[i] / K,
-// n_rows - 1)
-__global__ void row_counts_kernel(const int* __restrict__ counts, const int* __restrict__ starts,
-                                  long long n, int K, int n_rows, int* __restrict__ row_counts) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || counts[i] == 0) return;
-  atomicAdd(row_counts + min(max(starts[i], 0) / K, n_rows - 1), counts[i]);
-}
-
-int n_tiles_of(long long n) { return static_cast<int>((n + TILE - 1) / TILE); }
-
-unsigned blocks_of(long long n, int tpb) { return static_cast<unsigned>((n + tpb - 1) / tpb); }
-
-template <class Emit>
-void compact_any(const uint8_t* valid, long long n, long long out_size, Emit emit, int* slot,
-                 int* count, long long* scratch, cudaStream_t st) {
-  const int nt = n_tiles_of(n);
-  tile_sums_kernel<<<nt, TPB, 0, st>>>(FlagItems{valid}, n, scratch);
-  scan_tiles_kernel<<<1, 1024, 0, st>>>(scratch, nt, count);
-  scatter_kernel<<<nt, TPB, 0, st>>>(valid, n, scratch, out_size, emit, slot);
+int expand(const void* counts, const void* combo, long long n, const void* m_tok, long long n_m,
+           const void* l_tok, long long n_l, long long out_size, void* tok, void* total,
+           const void* starts, int K, int n_rows, void* row_counts, void* scratch,
+           cudaStream_t st) {
+  if (n <= 0 || n_m + n_l <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long row_bytes = row_counts ? 4ll * n_rows : 0;
+  const ExpandOp op{{}, static_cast<const int*>(counts), static_cast<const int*>(combo),
+                    static_cast<const int*>(m_tok), static_cast<const int*>(l_tok), n_m, n_l,
+                    out_size, static_cast<int*>(tok), static_cast<int*>(total),
+                    static_cast<const int*>(starts), K, n_rows,
+                    row_counts ? static_cast<int*>(row_scratch(scratch, n)) : nullptr,
+                    static_cast<int*>(row_counts)};
+  return one_pass(op, n, row_bytes,
+                  max(tail_blocks(out_size), row_counts ? tail_blocks(n_rows) : 0), scratch, st);
 }
 
 }  // namespace
 
-// flat stable compaction of up to 6 int32 payloads of widths[k] ints per
-// entry, with each entry's slot; scratch: n_tiles int64
-extern "C" int tt_compact(const void* valid, long long n, int n_pay, const void* const* ins,
-                          void* const* outs, const int* widths, long long out_size, void* count,
-                          void* slot, void* scratch, void* stream) {
-  if (n <= 0 || n_pay < 1 || n_pay > MAX_PAY) return static_cast<int>(cudaErrorInvalidValue);
-  Payloads p{};
-  p.n = n_pay;
-  for (int k = 0; k < n_pay; ++k) {
-    p.in[k] = static_cast<const int*>(ins[k]);
-    p.out[k] = static_cast<int*>(outs[k]);
-    p.width[k] = widths[k];
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  compact_any(static_cast<const uint8_t*>(valid), n, out_size, FlatEmit{p}, static_cast<int*>(slot),
-              static_cast<int*>(count), static_cast<long long*>(scratch), st);
-  if (out_size > 0)
-    fill_tail_kernel<<<blocks_of(out_size, 256), 256, 0, st>>>(static_cast<int*>(count), out_size, p);
-  return static_cast<int>(cudaGetLastError());
+// scratch words (int64) a one-pass entry takes over n items with
+// row_bytes bytes of per-row words (tt_catalog, tt_catalog2: C;
+// tt_expand_tokens_rows: 4 * n_rows; the others 0)
+extern "C" int tt_scratch_words(long long n, long long row_bytes) {
+  return static_cast<int>(scratch_words(n, row_bytes));
 }
 
 // piece catalog over the start mask [C, KP] of rows [C, KL]: starts,
-// lengths, padded words and row_bad_out = row_bad | too-long rows
+// lengths, padded words (16-byte aligned) and
+// row_bad_out = row_bad | too-long rows
 extern "C" int tt_catalog(const void* mask, int C, int KP, const void* rows, int KL,
                           const void* spec_f, const void* row_bad, long long out_size,
                           void* starts, void* words, void* lens, void* row_bad_out, void* count,
                           void* scratch, void* stream) {
   const long long n = static_cast<long long>(C) * KP;
-  if (n <= 0 || KP > KL || out_size <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  copy_flags_kernel<<<blocks_of(C, 256), 256, 0, st>>>(static_cast<const uint8_t*>(row_bad), C,
-                                                      static_cast<uint8_t*>(row_bad_out));
-  compact_any(static_cast<const uint8_t*>(mask), n, out_size,
-              CatalogEmit{KL, KP, static_cast<int*>(starts)}, nullptr, static_cast<int*>(count),
-              static_cast<long long*>(scratch), st);
-  catalog_finish_kernel<<<blocks_of(out_size, 256), 256, 0, st>>>(
-      static_cast<const int*>(count), out_size, static_cast<const uint8_t*>(rows), C, KL,
-      static_cast<const int*>(spec_f), static_cast<int*>(starts), static_cast<int*>(lens),
-      static_cast<uint32_t*>(words), static_cast<uint8_t*>(row_bad_out));
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 0 || KP > KL || out_size <= 0 || reinterpret_cast<uintptr_t>(words) & 15)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CatalogOp op{{}, static_cast<const uint8_t*>(mask), C, KP, KL,
+                     static_cast<const uint8_t*>(rows), static_cast<const int*>(spec_f),
+                     static_cast<const uint8_t*>(row_bad), out_size, static_cast<int*>(starts),
+                     static_cast<int*>(lens), static_cast<uint4*>(words),
+                     static_cast<uint8_t*>(row_scratch(scratch, n)),
+                     static_cast<uint8_t*>(row_bad_out),
+                     static_cast<unsigned long long*>(scratch) + 3, static_cast<int*>(count)};
+  return one_pass(op, n, C, max(tail_blocks(out_size), tail_blocks(C)), scratch,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// the short-miss and long compactions of one catalog (lens, hit [p] i32,
+// n_pieces 0-d i32, words [p, 4] i32, starts [p] i32) in one pass ->
+// (m_words [m_cap, 4], m_lens, m_pid [m_cap], n_miss, mslot [p];
+// l_starts, l_lens, l_pid [l_cap], n_long, lslot [p]), zero past the
+// counts, slots -1 where the piece is not of the kind
+extern "C" int tt_compact_kinds(const void* lens, const void* hit, const void* n_pieces,
+                                const void* words, const void* starts, long long p,
+                                long long m_cap, long long l_cap, void* m_words, void* m_lens,
+                                void* m_pid, void* n_miss, void* mslot, void* l_starts,
+                                void* l_lens, void* l_pid, void* n_long, void* lslot,
+                                void* scratch, void* stream) {
+  if (p <= 0 || p > LOW31 || m_cap <= 0 || l_cap <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const KindsOp op{{}, static_cast<const int*>(lens), static_cast<const int*>(hit),
+                   static_cast<const int*>(n_pieces), static_cast<const uint4*>(words),
+                   static_cast<const int*>(starts), m_cap, l_cap, static_cast<uint4*>(m_words),
+                   static_cast<int*>(m_lens), static_cast<int*>(m_pid),
+                   static_cast<int*>(l_starts), static_cast<int*>(l_lens),
+                   static_cast<int*>(l_pid), static_cast<int*>(mslot), static_cast<int*>(lslot),
+                   static_cast<int*>(n_miss), static_cast<int*>(n_long)};
+  return one_pass(op, p, 0, tail_blocks(m_cap) + tail_blocks(l_cap), scratch,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // row-wise compaction of vals [M, W] by valid [M, W], zero-filled, with
 // the count of each row
 extern "C" int tt_compact_rows(const void* valid, const void* vals, int M, int W, void* out,
                                void* counts, void* stream) {
-  compact_rows_kernel<<<blocks_of(M, 128), 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(valid), static_cast<const int*>(vals), M, W,
+  if (M <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int seg = (W < 32 && 32 % W == 0) ? W : 32;
+  const long long warps = (static_cast<long long>(M) + 32 / seg - 1) / (32 / seg);
+  compact_rows_kernel<<<blocks_of(warps * 32, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(valid), static_cast<const int*>(vals), M, W, seg,
       static_cast<int*>(out), static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
@@ -422,46 +728,33 @@ extern "C" int tt_route(const void* dst, const void* vals, int n, int out_size, 
 }
 
 // the token stream of per-piece counts [n] and combos [n], fetching merged
-// tokens from m_tok [n_m] then l_tok [n_l]; scratch: n_tiles int64
+// tokens from m_tok [n_m] then l_tok [n_l]
 extern "C" int tt_expand_tokens(const void* counts, const void* combo, long long n,
                                 const void* m_tok, long long n_m, const void* l_tok,
                                 long long n_l, long long out_size, void* tok, void* total,
                                 void* scratch, void* stream) {
-  if (n <= 0 || n_m + n_l <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nt = n_tiles_of(n);
-  long long* tile = static_cast<long long*>(scratch);
-  tile_sums_kernel<<<nt, TPB, 0, st>>>(CountItems{static_cast<const int*>(counts)}, n, tile);
-  scan_tiles_kernel<<<1, 1024, 0, st>>>(tile, nt, static_cast<int*>(total));
-  expand_tokens_kernel<<<nt, TPB, 0, st>>>(
-      static_cast<const int*>(counts), static_cast<const int*>(combo), n, tile,
-      static_cast<const int*>(m_tok), n_m, static_cast<const int*>(l_tok), n_l, out_size,
-      static_cast<int*>(tok));
-  if (out_size > 0)
-    expand_tail_kernel<<<blocks_of(out_size, 256), 256, 0, st>>>(static_cast<const int*>(total),
-                                                                 out_size, static_cast<int*>(tok));
-  return static_cast<int>(cudaGetLastError());
+  return expand(counts, combo, n, m_tok, n_m, l_tok, n_l, out_size, tok, total, nullptr, 1, 1,
+                nullptr, scratch, static_cast<cudaStream_t>(stream));
 }
 
 // v2 piece catalog over the start grid [C, K] of rows [C, KL]: starts,
-// lengths, padded words and row_bad_out = row_bad | too-long rows
+// lengths, padded words (16-byte aligned) and
+// row_bad_out = row_bad | too-long rows
 extern "C" int tt_catalog2(const void* mask, int C, int K, const void* n_payload, const void* rows,
                            int KL, const void* row_bad, long long out_size, void* starts,
                            void* words, void* lens, void* row_bad_out, void* count, void* scratch,
                            void* stream) {
   const long long n = static_cast<long long>(C) * K;
-  if (n <= 0 || K > KL || out_size <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  copy_flags_kernel<<<blocks_of(C, 256), 256, 0, st>>>(static_cast<const uint8_t*>(row_bad), C,
-                                                      static_cast<uint8_t*>(row_bad_out));
-  compact_any(static_cast<const uint8_t*>(mask), n, out_size,
-              Catalog2Emit{static_cast<int*>(starts)}, nullptr, static_cast<int*>(count),
-              static_cast<long long*>(scratch), st);
-  catalog2_finish_kernel<<<blocks_of(out_size, 256), 256, 0, st>>>(
-      static_cast<const int*>(count), out_size, static_cast<const uint8_t*>(rows), C, K, KL,
-      static_cast<const int*>(n_payload), static_cast<int*>(starts), static_cast<int*>(lens),
-      static_cast<uint32_t*>(words), static_cast<uint8_t*>(row_bad_out));
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 0 || K > KL || out_size <= 0 || reinterpret_cast<uintptr_t>(words) & 15)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Catalog2Op op{{}, static_cast<const uint8_t*>(mask), C, K, KL,
+                      static_cast<const uint8_t*>(rows), static_cast<const int*>(n_payload),
+                      static_cast<const uint8_t*>(row_bad), out_size, static_cast<int*>(starts),
+                      static_cast<int*>(lens), static_cast<uint4*>(words),
+                      static_cast<uint8_t*>(row_scratch(scratch, n)),
+                      static_cast<uint8_t*>(row_bad_out), static_cast<int*>(count)};
+  return one_pass(op, n, C, max(tail_blocks(out_size), tail_blocks(C)), scratch,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // slots [n, width] u8 of the pieces at flat grid starts [n] with lens [n]
@@ -485,15 +778,6 @@ extern "C" int tt_expand_tokens_rows(const void* counts, const void* combo, long
                                      int n_rows, void* tok, void* total, void* row_counts,
                                      void* scratch, void* stream) {
   if (K <= 0 || n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(row_counts, 0, static_cast<size_t>(n_rows) * 4, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (n > 0)
-    row_counts_kernel<<<blocks_of(n, 256), 256, 0, st>>>(
-        static_cast<const int*>(counts), static_cast<const int*>(starts), n, K, n_rows,
-        static_cast<int*>(row_counts));
-  return tt_expand_tokens(counts, combo, n, m_tok, n_m, l_tok, n_l, out_size, tok, total, scratch,
-                          stream);
+  return expand(counts, combo, n, m_tok, n_m, l_tok, n_l, out_size, tok, total, starts, K, n_rows,
+                row_counts, scratch, static_cast<cudaStream_t>(stream));
 }
-
-extern "C" int tt_tiles(long long n) { return n_tiles_of(n); }

@@ -16,10 +16,11 @@ The chunk programs call the kernel's functions, which carry those
 contracts plus what the programs need around them: ``catalog`` (the v3
 piece catalog with lengths, too-long row flags and padded words),
 ``catalog2`` (the v2 one, over a [C, K] start grid), ``compact_slots``
-(``compact`` with each entry's slot), ``compact_rows`` (with per-row
-counts), ``extract_slots`` (the v2 long-piece slots), ``expand_tokens``
-(``expand`` with the token fetch) and ``expand_tokens_rows`` (with the
-token count of each row).
+(``compact`` with each entry's slot), ``compact_kinds`` (the short-miss
+and long compactions of one catalog, their masks included),
+``compact_rows`` (with per-row counts), ``extract_slots`` (the v2
+long-piece slots), ``expand_tokens`` (``expand`` with the token fetch)
+and ``expand_tokens_rows`` (with the token count of each row).
 """
 
 from __future__ import annotations
@@ -117,6 +118,33 @@ def compact_slots(valid: torch.Tensor, payloads, out_size: int):
     vi = valid.to(torch.int32)
     slot = torch.where(valid, torch.cumsum(vi, 0, dtype=torch.int32) - vi, -1)
     return grouped, count, slot
+
+
+def kind_masks(lens: torch.Tensor, hit: torch.Tensor, n_pieces: torch.Tensor):
+    """(is_short_miss, is_long) [p] bool of a catalog: a live piece (below
+    n_pieces) of 2..16 bytes with no whole-piece hit (hit == -1), and one
+    of 17..64 bytes."""
+    live = torch.arange(lens.shape[0], device=lens.device) < n_pieces
+    is_short_miss = live & (lens >= 2) & (lens <= SLOT) & (hit == -1)
+    is_long = live & (lens > SLOT) & (lens <= LONG_SLOT)
+    return is_short_miss, is_long
+
+
+def compact_kinds(words: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
+                  hit: torch.Tensor, n_pieces: torch.Tensor, m_cap: int, l_cap: int):
+    """The short-miss and long compactions of one catalog (words [p, 4],
+    starts, lens, hit [p] i32, n_pieces i32 scalar): ``compact_slots`` of
+    (words, lens, piece index) by ``is_short_miss`` into m_cap slots and
+    of (starts, lens, piece index) by ``is_long`` into l_cap slots
+    (``kind_masks``).
+    -> ((m_words, m_lens, m_pid), n_miss, mslot [p], (l_starts, l_lens,
+    l_pid), n_long, lslot [p]); a slot is -1 where the piece is not of
+    that kind."""
+    is_short_miss, is_long = kind_masks(lens, hit, n_pieces)
+    piece_idx = torch.arange(lens.shape[0], dtype=torch.int32, device=lens.device)
+    m_out, n_miss, mslot = compact_slots(is_short_miss, [words, lens, piece_idx], m_cap)
+    l_out, n_long, lslot = compact_slots(is_long, [starts, lens, piece_idx], l_cap)
+    return tuple(m_out), n_miss, mslot, tuple(l_out), n_long, lslot
 
 
 def compact_rows(valid: torch.Tensor, vals: torch.Tensor):

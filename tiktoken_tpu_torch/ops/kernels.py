@@ -8,10 +8,12 @@ bounds it and how its design answers that):
 - ``scan_rows``: row gather, char classes and the handshake DFA scan
   (entry ``scan_rows``), the handshake validation (``scan_validate``),
   and the v2 rows' char classes and scan without the handshake
-  (``char_scan``);
-- ``compaction``: the v3 and v2 piece catalogs, flat and row-wise stable
+  (``char_scan``), the two scans one kernel body;
+- ``compaction``: the v3 and v2 piece catalogs, the fused short-miss and
+  long compactions of a catalog (``compact_kinds``), row-wise stable
   compaction, slot extraction, monotone routing and the expansion into
-  the token stream (with per-row counts for v2);
+  the token stream (with per-row counts for v2), the catalogs, the kind
+  compactions and the expansions each one launch by decoupled look-back;
 - ``vocab_hit``: whole-piece vocabulary hits, short and long tables;
 - ``slot_merge``: greedy BPE in 16- and 64-byte slots;
 - ``byte_scan``: the byte-level scanners, the v2 sequential scan
@@ -60,6 +62,11 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file_
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# rows per block of the two scans (tt_scan_rows, tt_char_scan), 32-256: the
+# block has four threads per row to stage and classify, one to walk it;
+# chip_smoke.py sweeps 32-256
+SCAN_ROWS_PER_BLOCK = 128
+
 # kernel launches since the last reset_launches(), by kernel
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 # the same, by C entry point (e.g. "tt_window_scan")
@@ -76,15 +83,14 @@ _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uin
 _SIGNATURES = {
     "scan_rows": {
         "tt_scan_rows": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I,
-                         _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+                         _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
         "tt_scan_validate": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
-        "tt_char_scan": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+        "tt_char_scan": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P],
-        "tt_char_scan_smem": [_I, _I, _I, _I, _I],
-        "tt_char_scan_max_smem": [],
+        "tt_scan_smem": [_I, _I, _I, _I, _I, _I],
+        "tt_scan_max_smem": [],
     },
     "compaction": {
-        "tt_compact": [_P, _LL, _I, _P, _P, _P, _LL, _P, _P, _P, _P],
         "tt_catalog": [_P, _I, _I, _P, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P],
         "tt_compact_rows": [_P, _P, _I, _I, _P, _P, _P],
         "tt_route": [_P, _P, _I, _I, _P, _P],
@@ -93,7 +99,9 @@ _SIGNATURES = {
         "tt_extract_slots": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
         "tt_expand_tokens_rows": [_P, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _I, _I, _P, _P, _P,
                                   _P, _P],
-        "tt_tiles": [_LL],
+        "tt_compact_kinds": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P],
+        "tt_scratch_words": [_LL, _LL],
     },
     "vocab_hit": {
         "tt_vocab_hit": [_P, _I, _P, _P, _I, _U, _P, _P],
@@ -222,28 +230,53 @@ def _dev(t: torch.Tensor) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
+def _scan_tables_args(tables: ScanTables, dev) -> list:
+    S_, NW = tables.consts.shape
+    return [_check("page16", tables.page16, torch.int16, None, dev),
+            _check("mixed_rows", tables.mixed_rows, torch.uint8, None, dev),
+            tables.mixed_rows.shape[0],
+            _check("consts", tables.consts, torch.int32, None, dev), S_, NW,
+            tables.skip_class, tables.cont_class, tables.eof_class]
+
+
+def _scan_geometry(tables: ScanTables, KL: int, K: int) -> int:
+    """Rows per block for a scan of rows of KL bytes and K mask columns;
+    raises before any launch when a block's rows and tables do not fit
+    in shared memory."""
+    if not 0 < K <= KL:
+        raise ValueError(f"mask width K={K} must be in 1..{KL}")
+    S_, NW = tables.consts.shape
+    lib = _LIBS.load()["scan_rows"]
+    R = SCAN_ROWS_PER_BLOCK
+    smem = lib.tt_scan_smem(KL, K, S_, NW, tables.mixed_rows.shape[0], R)
+    limit = lib.tt_scan_max_smem()
+    if smem > limit:
+        raise ValueError(f"the scan needs {smem} bytes of shared memory per block of {R} rows of "
+                         f"{KL} bytes, over the limit of {limit}: use a smaller row_capacity")
+    return R
+
+
 def scan_rows(tables: ScanTables, flat, row_off, n_payload, n_total, is_doc_end,
               *, KP: int, KL: int, na_frac: int):
     """B1+B2+B3 -> (rows [C, KL] u8, mask [C, KP] bool, spec_f [C] i32,
-    row_bad [C] bool, na_overflow bool scalar)."""
+    row_bad [C] bool, na_overflow bool scalar). ``flat`` must be 4-byte
+    aligned."""
     if _on_cpu(flat):
         return sweep_scan.scan_rows(tables, flat, row_off, n_payload, n_total,
                                     is_doc_end, KP=KP, KL=KL, na_frac=na_frac)
     dev = _dev(flat)
     C = row_off.shape[0]
     i32, u8, b = torch.int32, torch.uint8, torch.bool
-    S_, NW = tables.consts.shape
+    R = _scan_geometry(tables, KL, KP)
+    if flat.data_ptr() % 4:
+        raise ValueError("flat must be 4-byte aligned")
     args = [
         _check("flat", flat, u8, None, dev), flat.shape[0],
         _check("row_off", row_off, i32, (C,), dev),
         _check("n_payload", n_payload, i32, (C,), dev),
         _check("n_total", n_total, i32, (C,), dev),
         _check("is_doc_end", is_doc_end, b, (C,), dev), C, KL, KP,
-        _check("page_entry", tables.page_entry, i32, None, dev),
-        _check("mixed_rows", tables.mixed_rows, u8, None, dev),
-        tables.mixed_rows.shape[0],
-        _check("consts", tables.consts, i32, None, dev), S_, NW,
-        tables.skip_class, tables.cont_class, tables.eof_class, na_cap(KL, na_frac),
+        *_scan_tables_args(tables, dev), na_cap(KL, na_frac), R,
     ]
     rows = torch.empty((C, KL), dtype=u8, device=dev)
     mask = torch.empty((C, KP), dtype=b, device=dev)
@@ -285,23 +318,12 @@ def char_scan(tables: ScanTables, rows, n_payload, n_total, *, K: int, na_frac: 
         return sweep_scan.char_scan_rows(tables, rows, n_payload, n_total, K=K, na_frac=na_frac)
     dev = _dev(rows)
     C, KL = rows.shape
-    S_, NW = tables.consts.shape
-    n_mixed = tables.mixed_rows.shape[0]
-    if not 0 < K <= KL:
-        raise ValueError(f"mask width K={K} must be in 1..{KL}")
-    lib = _LIBS.load()["scan_rows"]
-    smem, limit = lib.tt_char_scan_smem(KL, K, S_, NW, n_mixed), lib.tt_char_scan_max_smem()
-    if smem > limit:
-        raise ValueError(f"tt_char_scan needs {smem} bytes of shared memory per block for rows "
-                         f"of {KL} bytes, over the limit of {limit}: use a smaller row_capacity")
+    R = _scan_geometry(tables, KL, K)
     args = [
         _check("rows", rows, torch.uint8, (C, KL), dev), C, KL, K,
         _check("n_payload", n_payload, torch.int32, (C,), dev),
         _check("n_total", n_total, torch.int32, (C,), dev),
-        _check("page_entry", tables.page_entry, torch.int32, None, dev),
-        _check("mixed_rows", tables.mixed_rows, torch.uint8, None, dev), n_mixed,
-        _check("consts", tables.consts, torch.int32, None, dev), S_, NW,
-        tables.skip_class, tables.cont_class, tables.eof_class, na_cap(KL, na_frac),
+        *_scan_tables_args(tables, dev), na_cap(KL, na_frac), R,
     ]
     mask = torch.empty((C, K), dtype=torch.bool, device=dev)
     row_bad = torch.empty(C, dtype=torch.bool, device=dev)
@@ -316,9 +338,11 @@ def char_scan(tables: ScanTables, rows, n_payload, n_total, *, K: int, na_frac: 
 # ---------------------------------------------------------------------------
 
 
-def _tile_scratch(n: int, dev) -> torch.Tensor:
-    tiles = _LIBS.load()["compaction"].tt_tiles(n)
-    return torch.empty(tiles, dtype=torch.int64, device=dev)
+def _tile_scratch(n: int, dev, row_bytes: int = 0) -> torch.Tensor:
+    """The scratch of a one-pass entry over n items with row_bytes bytes of
+    per-row words (cleared by the entry)."""
+    words = _LIBS.load()["compaction"].tt_scratch_words(n, row_bytes)
+    return torch.empty(words, dtype=torch.int64, device=dev)
 
 
 def catalog(rows, mask3, spec_f, row_bad, p_cap: int):
@@ -338,38 +362,40 @@ def catalog(rows, mask3, spec_f, row_bad, p_cap: int):
     lens = torch.empty(p_cap, dtype=torch.int32, device=dev)
     bad = torch.empty(C, dtype=torch.bool, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = _tile_scratch(C * KP, dev)
+    scratch = _tile_scratch(C * KP, dev, C)
     _call("compaction", "tt_catalog", dev, *args, starts.data_ptr(), words.data_ptr(),
           lens.data_ptr(), bad.data_ptr(), count.data_ptr(), scratch.data_ptr())
     return starts, words, lens, bad, count
 
 
-def compact(valid, payloads, out_size: int):
-    """Flat stable compaction of up to 6 int32 payloads, each [n] or
-    [n, w] -> (outs, count, slot [n] i32); see ``compaction.compact_slots``."""
-    if _on_cpu(valid):
-        return compaction.compact_slots(valid, payloads, out_size)
-    dev = _dev(valid)
-    (n,) = valid.shape
-    if not 1 <= len(payloads) <= 6:
-        raise ValueError("compact takes 1 to 6 payloads")
-    for i, p in enumerate(payloads):
-        _check(f"payload{i}", p, torch.int32, None, dev)
-        if p.dim() not in (1, 2) or p.shape[0] != n:
-            raise ValueError(f"payload{i}: expected shape ({n},) or ({n}, w), got {tuple(p.shape)}")
-    outs = [torch.empty((out_size,) + tuple(p.shape[1:]), dtype=torch.int32, device=dev)
-            for p in payloads]
-    k = len(payloads)
-    ins = (ctypes.c_void_p * k)(*[p.data_ptr() for p in payloads])
-    out_ptrs = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
-    widths = (ctypes.c_int * k)(*[p.shape[1] if p.dim() == 2 else 1 for p in payloads])
-    count = torch.empty((), dtype=torch.int32, device=dev)
-    slot = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = _tile_scratch(n, dev)
-    _call("compaction", "tt_compact", dev, _check("valid", valid, torch.bool, (n,), dev), n, k,
-          ctypes.cast(ins, _P), ctypes.cast(out_ptrs, _P), ctypes.cast(widths, _P), out_size,
-          count.data_ptr(), slot.data_ptr(), scratch.data_ptr())
-    return outs, count, slot
+def compact_kinds(words, starts, lens, hit, n_pieces, m_cap: int, l_cap: int):
+    """The short-miss and long compactions of one catalog in one pass ->
+    ((m_words [m_cap, 4], m_lens, m_pid [m_cap]), n_miss, mslot [p],
+    (l_starts, l_lens, l_pid [l_cap]), n_long, lslot [p]); see
+    ``compaction.compact_kinds``."""
+    if _on_cpu(lens):
+        return compaction.compact_kinds(words, starts, lens, hit, n_pieces, m_cap, l_cap)
+    dev = _dev(lens)
+    (p,) = lens.shape
+    if words.data_ptr() % 16:
+        raise ValueError("words must be 16-byte aligned")
+    args = [_check("lens", lens, torch.int32, (p,), dev),
+            _check("hit", hit, torch.int32, (p,), dev),
+            _check("n_pieces", n_pieces, torch.int32, (), dev),
+            _check("words", words, torch.int32, (p, 4), dev),
+            _check("starts", starts, torch.int32, (p,), dev), p, m_cap, l_cap]
+    i32 = dict(dtype=torch.int32, device=dev)
+    m_words, m_lens, m_pid = (torch.empty((m_cap, 4), **i32), torch.empty(m_cap, **i32),
+                              torch.empty(m_cap, **i32))
+    l_starts, l_lens, l_pid = (torch.empty(l_cap, **i32) for _ in range(3))
+    n_miss, n_long = torch.empty((), **i32), torch.empty((), **i32)
+    mslot, lslot = torch.empty(p, **i32), torch.empty(p, **i32)
+    scratch = _tile_scratch(p, dev)
+    _call("compaction", "tt_compact_kinds", dev, *args, m_words.data_ptr(), m_lens.data_ptr(),
+          m_pid.data_ptr(), n_miss.data_ptr(), mslot.data_ptr(), l_starts.data_ptr(),
+          l_lens.data_ptr(), l_pid.data_ptr(), n_long.data_ptr(), lslot.data_ptr(),
+          scratch.data_ptr())
+    return (m_words, m_lens, m_pid), n_miss, mslot, (l_starts, l_lens, l_pid), n_long, lslot
 
 
 def compact_rows(valid, vals):
@@ -504,7 +530,7 @@ def catalog2(piece_start, n_payload, rows, row_bad, p_cap: int):
     lens = torch.empty(p_cap, dtype=torch.int32, device=dev)
     bad = torch.empty(C, dtype=torch.bool, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = _tile_scratch(C * K, dev)
+    scratch = _tile_scratch(C * K, dev, C)
     _call("compaction", "tt_catalog2", dev, *args, starts.data_ptr(), words.data_ptr(),
           lens.data_ptr(), bad.data_ptr(), count.data_ptr(), scratch.data_ptr())
     return starts, words, lens, bad, count
@@ -543,7 +569,7 @@ def expand_tokens_rows(counts, combo, m_tok, l_tok, out_size: int, starts, K: in
     tok = torch.empty(out_size, dtype=torch.int32, device=dev)
     total = torch.empty((), dtype=torch.int32, device=dev)
     row_counts = torch.empty(n_rows, dtype=torch.int32, device=dev)
-    scratch = _tile_scratch(n, dev)
+    scratch = _tile_scratch(n, dev, 4 * n_rows)
     _call("compaction", "tt_expand_tokens_rows", dev, *args, tok.data_ptr(), total.data_ptr(),
           row_counts.data_ptr(), scratch.data_ptr())
     return tok, total, row_counts
@@ -685,7 +711,7 @@ def hist_argmax(hist):
 # everywhere — the yardstick the chip check holds each kernel against.
 KERNEL_OPS = SimpleNamespace(
     scan_rows=scan_rows, scan_validate=scan_validate, char_scan=char_scan, catalog=catalog,
-    compact=compact, compact_rows=compact_rows, route_right=route_right,
+    compact_kinds=compact_kinds, compact_rows=compact_rows, route_right=route_right,
     expand_tokens=expand_tokens, vocab_hit=vocab_hit, long_vocab_hit=long_vocab_hit,
     slot_merge=slot_merge,
     catalog2=catalog2, extract_slots=extract_slots, expand_tokens_rows=expand_tokens_rows,
@@ -695,7 +721,7 @@ KERNEL_OPS = SimpleNamespace(
 PLAIN_OPS = SimpleNamespace(
     scan_rows=sweep_scan.scan_rows, scan_validate=sweep_scan.scan_validate,
     char_scan=sweep_scan.char_scan_rows, catalog=compaction.catalog,
-    compact=compaction.compact_slots, compact_rows=compaction.compact_rows,
+    compact_kinds=compaction.compact_kinds, compact_rows=compaction.compact_rows,
     route_right=compaction.route_right, expand_tokens=compaction.expand_tokens,
     vocab_hit=pieces.vocab_hit,
     long_vocab_hit=pieces.long_vocab_hit, slot_merge=slot_merge_mod.slot_merge,

@@ -30,8 +30,8 @@ v1 (``run_rows1``), the counterpart of the JAX ``build_pipeline_fn``:
 window scan, orbit, ``row_bad``, full-grid merge and row packing. It
 reads the byte-level scan table.
 
-Glue that stays PyTorch ops on the device: the kind masks
-(``is_short_miss``, ``is_long``, ``m_real``, ``l_real``), the
+Glue that stays PyTorch ops on the device: the slot masks (``m_real``,
+``l_real``; the kind masks are read off ``compact_kinds``' slots), the
 single_tok/combo/count selects (with the long hits' lane-0 select) and
 the header concat. The scans read the row bytes and the merge the
 payload lengths directly.
@@ -90,12 +90,13 @@ def run_chunk2(t, rows, n_payload, n_total, *, scanner: str = "char", ops=KERNEL
     # ---- whole-piece hits ------------------------------------------------------
     hit = ops.vocab_hit(t.vocab_buckets, words, torch.where(lens <= SLOT, lens, 0), t.vocab_seed)
     miss = hit == -1  # MISS = 0xFFFFFFFF
-    piece_idx = ar(p_cap)
+
+    # ---- the short-miss and long compactions, one pass ---------------------------
+    (m_words, m_lens_c, m_pid), n_miss, mslot, (l_starts, l_lens_c, l_pid), n_long, lslot = \
+        ops.compact_kinds(words, starts, lens, hit, n_pieces, m_cap, l_cap)
+    is_short_miss, is_long = mslot >= 0, lslot >= 0
 
     # ---- short misses ------------------------------------------------------------
-    is_short_miss = (lens >= 2) & (lens <= SLOT) & miss
-    (m_words, m_lens_c, m_pid), n_miss, mslot = ops.compact(
-        is_short_miss, [words, lens, piece_idx], m_cap)
     m_real = ar(m_cap) < n_miss
     m_lens = torch.where(m_real, m_lens_c, 0)
     m_tok, m_alive = ops.slot_merge(t.pair_buckets, t.byte_to_rank, m_words.view(torch.uint8),
@@ -103,9 +104,6 @@ def run_chunk2(t, rows, n_payload, n_total, *, scanner: str = "char", ops=KERNEL
     m_tok_p, m_counts = ops.compact_rows(m_alive & m_real[:, None], m_tok)
 
     # ---- long pieces ---------------------------------------------------------------
-    is_long = (lens > SLOT) & (lens <= LONG_SLOT)
-    (l_starts, l_lens_c, l_pid), n_long, lslot = ops.compact(
-        is_long, [starts, lens, piece_idx], l_cap)
     l_real = ar(l_cap) < n_long
     l_lens = torch.where(l_real, l_lens_c, 0)
     l_bytes = ops.extract_slots(rows, l_starts, l_lens, K)

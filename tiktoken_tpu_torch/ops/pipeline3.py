@@ -262,7 +262,7 @@ def run_chunk(t: ChunkTables, flat, row_off, n_payload, n_total, is_doc_end,
     operations: the kernels (``KERNEL_OPS``) or their plain versions
     (``PLAIN_OPS``, the chip check's yardstick).
 
-    Glue that stays as PyTorch ops on the device: the live and kind masks,
+    Glue that stays as PyTorch ops on the device: the live mask,
     ``extract_long`` (a gather over the few long pieces), the
     single_tok/combo selects (with the long hits' lane-0 select), the
     per-row ``searchsorted`` and the header concat.
@@ -291,11 +291,12 @@ def run_chunk(t: ChunkTables, flat, row_off, n_payload, n_total, is_doc_end,
     hit = ops.vocab_hit(t.vocab_buckets, words, torch.where(lens <= SLOT, lens, 0), t.vocab_seed)
     miss = hit == -1  # MISS = 0xFFFFFFFF
 
+    # ---- B7/B8: the short-miss and long compactions, one pass ---------------
+    (m_words, m_lens_c, m_pid), n_miss, mslot, (l_starts, l_lens_c, l_pid), n_long, lslot = \
+        ops.compact_kinds(words, starts, lens, hit, n_pieces, m_cap, l_cap)
+    is_short_miss, is_long = mslot >= 0, lslot >= 0
+
     # ---- B7: short misses -----------------------------------------------------
-    is_short_miss = live & (lens >= 2) & (lens <= SLOT) & miss
-    piece_idx = ar(p_cap)
-    (m_words, m_lens_c, m_pid), n_miss, mslot = ops.compact(
-        is_short_miss, [words, lens, piece_idx], m_cap)
     m_real = ar(m_cap) < n_miss
     m_bytes = m_words.view(torch.uint8)  # [m_cap, 16]
     m_lens = torch.where(m_real, m_lens_c, 0)
@@ -303,9 +304,6 @@ def run_chunk(t: ChunkTables, flat, row_off, n_payload, n_total, is_doc_end,
     m_tok_p, m_counts = ops.compact_rows(m_alive & m_real[:, None], m_tok)
 
     # ---- B8: long pieces ------------------------------------------------------
-    is_long = live & (lens > SLOT) & (lens <= LONG_SLOT)
-    (l_starts, l_lens_c, l_pid), n_long, lslot = ops.compact(
-        is_long, [starts, lens, piece_idx], l_cap)
     l_real = ar(l_cap) < n_long
     l_lens = torch.where(l_real, l_lens_c, 0)
     l_bytes = extract_long(rows, l_starts, l_lens)

@@ -80,6 +80,7 @@ class ScanTables:
     """The scan's device tables: class pages and packed step words."""
 
     page_entry: torch.Tensor  # [N_PAGES] int32
+    page16: torch.Tensor  # [N_PAGES] int16: page_entry's values (< 2^14), as the kernel reads them
     mixed_rows: torch.Tensor  # [n_mixed, 128] uint8
     consts: torch.Tensor  # [S, NW] int32 (uint32 bit patterns)
     n_classes: int
@@ -96,13 +97,17 @@ class ScanTables:
     def to(self, device: torch.device) -> "ScanTables":
         """A copy of the tables on ``device``."""
         return replace(self, page_entry=self.page_entry.to(device),
-                       mixed_rows=self.mixed_rows.to(device), consts=self.consts.to(device))
+                       page16=self.page16.to(device), mixed_rows=self.mixed_rows.to(device),
+                       consts=self.consts.to(device))
 
 
 def scan_tables(tables: CharClassTables, consts: np.ndarray,
                 device: torch.device) -> ScanTables:
+    if int(tables.page_entry.max(initial=0)) >= 1 << 15:
+        raise ValueError("page entries exceed the kernel's 16-bit page table")
     return ScanTables(
         page_entry=torch.as_tensor(tables.page_entry.astype(np.int32), device=device),
+        page16=torch.as_tensor(tables.page_entry.astype(np.int16), device=device),
         mixed_rows=torch.as_tensor(tables.mixed_rows.astype(np.uint8), device=device),
         consts=torch.as_tensor(consts.view(np.int32), device=device),
         n_classes=tables.n_classes,
@@ -115,10 +120,12 @@ def scan_tables(tables: CharClassTables, consts: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
-def _walk_numpy(tables: CharClassTables, classes_ext: np.ndarray, n_payload: int,
-                n_total: int, is_doc_end: bool | None, K: int) -> tuple[np.ndarray, int, bool]:
+def walk_numpy(tables: CharClassTables, classes_ext: np.ndarray, n_payload: int,
+               n_total: int, is_doc_end: bool | None, K: int
+               ) -> tuple[np.ndarray, int, bool, int]:
     """One row's walk from offset 0: (piece_start mask [K], first boundary
-    at or past ``n_payload``, bad). ``is_doc_end`` None: no handshake."""
+    at or past ``n_payload``, bad, steps taken). ``is_doc_end`` None: no
+    handshake. A row still unfinished after 3 * (KL + 2) steps is bad."""
     consts = build_scan_consts(tables)
     SKIP = tables.skip_class
     CONTC = tables.cont_class
@@ -128,9 +135,11 @@ def _walk_numpy(tables: CharClassTables, classes_ext: np.ndarray, n_payload: int
     bad = False
     spec_f = n_payload
     if n_payload <= 0:
-        return mask, 0, False
+        return mask, 0, False, 0
     p, s, mstart, lend, cs = 0, START, 0, -1, 0
+    steps = 0
     for _ in range(3 * (KL + 2)):
+        steps += 1
         c = int(classes_ext[min(p, KL)])
         v = int(consts[s, c >> 2] >> ((c & 3) * 8)) & 0xFF
         s2 = v & 31
@@ -167,7 +176,7 @@ def _walk_numpy(tables: CharClassTables, classes_ext: np.ndarray, n_payload: int
             s = s2
     else:
         bad = True
-    return mask, int(spec_f), bad
+    return mask, int(spec_f), bad, steps
 
 
 def char_scan_numpy(tables: CharClassTables, classes_ext: np.ndarray, n_payload: int,
@@ -175,7 +184,7 @@ def char_scan_numpy(tables: CharClassTables, classes_ext: np.ndarray, n_payload:
     """One row, the v2 contract. classes_ext [KL+1] int32 with EOF at >=
     n_total and in the final column. Returns (piece_start mask [K] bool,
     bad)."""
-    mask, _, bad = _walk_numpy(tables, classes_ext, n_payload, n_total, None, K)
+    mask, _, bad, _ = walk_numpy(tables, classes_ext, n_payload, n_total, None, K)
     return mask, bad
 
 
@@ -197,7 +206,7 @@ def handshake_scan_numpy(
     a row that is NOT the end of its document. For a bad row ``spec_f``
     is unspecified (the kernels, like the JAX one, keep the end of the
     dying match)."""
-    return _walk_numpy(tables, classes_ext, n_payload, n_total, bool(is_doc_end), K)
+    return walk_numpy(tables, classes_ext, n_payload, n_total, bool(is_doc_end), K)[:3]
 
 
 # ---------------------------------------------------------------------------
@@ -216,9 +225,10 @@ def row_gather(flat: torch.Tensor, row_off: torch.Tensor, KL: int) -> torch.Tens
 def _walk(consts: torch.Tensor, cls_ext: torch.Tensor, n_payload: torch.Tensor,
           n_total: torch.Tensor, is_doc_end: torch.Tensor | None, *, K: int,
           cont_class: int, eof_class: int):
-    """All rows in lockstep, each following ``_walk_numpy`` step for step
+    """All rows in lockstep, each following ``walk_numpy`` step for step
     with the step cap 3 * (KL + 2): (mask [C, K] bool, f [C] int64, bad [C]
-    bool). ``is_doc_end`` None: no handshake."""
+    bool, steps [C] int64, each row's steps taken). ``is_doc_end`` None: no
+    handshake."""
     C, KL1 = cls_ext.shape
     KL = KL1 - 1
     dev = cls_ext.device
@@ -240,10 +250,12 @@ def _walk(consts: torch.Tensor, cls_ext: torch.Tensor, n_payload: torch.Tensor,
     bad = torch.zeros(C, dtype=torch.bool, device=dev)
     f = n_payload.clamp(min=0)
     mask = torch.zeros(C * K, dtype=torch.uint8, device=dev)
+    steps = torch.zeros(C, dtype=torch.int64, device=dev)
     for it in range(3 * (KL + 2)):
         if it % 16 == 0 and not bool((~(done | bad)).any()):
             break
         active = ~(done | bad)
+        steps += active
         c = cls_ext[rows, p.clamp(0, KL)]
         v = vals[s, c]
         s2 = v & 31
@@ -275,7 +287,7 @@ def _walk(consts: torch.Tensor, cls_ext: torch.Tensor, n_payload: torch.Tensor,
         s = torch.where(adv, s2, START)
         mstart = torch.where(restart, lend, mstart)
         lend = torch.where(restart, -1, lend)
-    return mask.view(C, K).bool(), f, bad | ~done
+    return mask.view(C, K).bool(), f, bad | ~done, steps
 
 
 def handshake_scan(consts: torch.Tensor, cls_ext: torch.Tensor,
@@ -286,8 +298,8 @@ def handshake_scan(consts: torch.Tensor, cls_ext: torch.Tensor,
     n_total [C] i32, is_doc_end [C] bool) -> (piece_start mask [C, KP]
     bool, spec_f [C] i32, row_bad [C] bool); each row as
     ``handshake_scan_numpy``."""
-    mask, f, bad = _walk(consts, cls_ext, n_payload, n_total, is_doc_end, K=KP,
-                         cont_class=cont_class, eof_class=eof_class)
+    mask, f, bad, _ = _walk(consts, cls_ext, n_payload, n_total, is_doc_end, K=KP,
+                            cont_class=cont_class, eof_class=eof_class)
     return mask, torch.where(n_payload <= 0, 0, f).to(torch.int32), bad
 
 
@@ -296,9 +308,19 @@ def char_scan(consts: torch.Tensor, cls_ext: torch.Tensor, n_payload: torch.Tens
     """B16's scan, all rows in lockstep: (classes_ext [C, KL+1] i32,
     n_payload, n_total [C] i32) -> (piece_start [C, K] bool, row_bad [C]
     bool); each row as ``char_scan_numpy``."""
-    mask, _, bad = _walk(consts, cls_ext, n_payload, n_total, None, K=K,
-                         cont_class=cont_class, eof_class=eof_class)
+    mask, _, bad, _ = _walk(consts, cls_ext, n_payload, n_total, None, K=K,
+                            cont_class=cont_class, eof_class=eof_class)
     return mask, bad
+
+
+def walk_steps(tables: ScanTables, cls_ext: torch.Tensor, n_payload: torch.Tensor,
+               n_total: torch.Tensor, is_doc_end: torch.Tensor | None = None) -> torch.Tensor:
+    """The steps each row's walk takes (steps [C] int64), with the
+    handshake when ``is_doc_end`` is given; the latency a one-thread-per-row
+    walk cannot avoid."""
+    K = cls_ext.shape[1] - 1
+    return _walk(tables.consts, cls_ext, n_payload, n_total, is_doc_end, K=K,
+                 cont_class=tables.cont_class, eof_class=tables.eof_class)[3]
 
 
 def row_classes(tables: ScanTables, rows: torch.Tensor, n_total: torch.Tensor,
