@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    1 MB documents, plus edge documents;
 4. per kernel, on one real v3 chunk of that corpus at C=32768 rows,
    K=176: every entry point against its plain PyTorch version on the
-   same inputs (integers, so exact equality), timed with CUDA events;
+   same inputs (integers, so exact equality; the slot merges' counts of
+   the live slots and their tokens below each count, the rest being left
+   unwritten), timed with CUDA events;
    then the whole chunk program with the kernels and with the plain
    versions, and every entry point again on the edge documents' chunks
    (over the non-ASCII cap, in both cap variants); the scan's walk
@@ -26,7 +28,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    against its plain version, then the three programs with the kernels
    against plain (a chunk over the char scanner's non-ASCII cap is held
    by its header only, and the rows over the cap are counted); the same
-   scan study as phase 4; the edge documents' chunk, over the cap, entry
+   scan study as phase 4, for ``tt_char_scan`` and for ``tt_seq_scan``
+   (its rows per block, and its time with no hot rows in shared memory);
+   the edge documents' chunk, over the cap, entry
    point by entry point; a row too long for the scan's shared memory is
    refused before launch;
 5. the v3 main path: ``Encoding.encode_corpus_to_numpy`` over the corpus
@@ -56,7 +60,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 
 Each main-path call (phases 5, 5b, 7 and 8) sets the launch counts to 0
 just before it and reads them just after, and fails if a kernel of its
-path was not launched.
+path was not launched, if a path that merges did not launch
+``tt_slot_merge_packed`` and ``tt_piece_counts``, or if any path launched
+an entry point that the slot merge's redesign took out
+(``tt_compact_rows``, ``tt_route``).
 
 Before the last line it prints the card line and one JSON ``kernels``
 line; the last line is ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -82,11 +89,10 @@ INT32_OPS_PER_S = 67e12  # float32 non-tensor rate, as the 32-bit ALU proxy
 KERNEL_OF = {
     "pair_hist": "pair_count", "hist_argmax": "pair_count",
     "scan_rows": "scan_rows", "scan_validate": "scan_rows", "char_scan": "scan_rows",
-    "catalog": "compaction", "compact_kinds": "compaction", "compact_rows": "compaction",
-    "route_right": "compaction", "expand_tokens": "compaction", "catalog2": "compaction",
+    "catalog": "compaction", "compact_kinds": "compaction", "catalog2": "compaction",
     "extract_slots": "compaction", "expand_tokens_rows": "compaction",
     "vocab_hit": "vocab_hit", "long_vocab_hit": "vocab_hit",
-    "slot_merge": "slot_merge",
+    "slot_merge_packed": "slot_merge", "piece_counts": "slot_merge",
     "seq_scan": "byte_scan", "window_scan": "byte_scan", "orbit": "byte_scan",
     "grid_merge": "grid_merge",
 }
@@ -95,10 +101,11 @@ REPLACES = {
                  "tiktoken_tpu/ops/pipeline3.py:306; tiktoken_tpu/ops/pipeline3.py:410; "
                  "tiktoken_tpu/ops/pipeline2.py:86",
     "compaction": "tiktoken_tpu/ops/compaction.py:78; tiktoken_tpu/ops/compaction.py:164; "
-                  "tiktoken_tpu/ops/pipeline3.py:327; tiktoken_tpu/ops/pieces.py:288; "
-                  "tiktoken_tpu/ops/pieces.py:317; tiktoken_tpu/ops/pipeline2.py:104",
+                  "tiktoken_tpu/ops/pieces.py:288; tiktoken_tpu/ops/pieces.py:317; "
+                  "tiktoken_tpu/ops/pipeline2.py:104",
     "vocab_hit": "tiktoken_tpu/ops/pieces.py:354; tiktoken_tpu/ops/pieces.py:205",
-    "slot_merge": "tiktoken_tpu/ops/slot_merge.py:62",
+    "slot_merge": "tiktoken_tpu/ops/slot_merge.py:62; tiktoken_tpu/ops/pipeline3.py:327; "
+                  "tiktoken_tpu/ops/pipeline3.py:553; tiktoken_tpu/ops/pipeline2.py:104",
     "byte_scan": "tiktoken_tpu/ops/window_scan.py:287; tiktoken_tpu/ops/window_scan.py:118; "
                  "tiktoken_tpu/ops/window_scan.py:197",
     "grid_merge": "tiktoken_tpu/ops/merge.py:116; tiktoken_tpu/ops/engine.py:281",
@@ -109,19 +116,25 @@ JAX_FUNCTIONS = {
                   "sweep_scan.make_char_scan_fn(handshake=True)",
                   "pipeline3 handshake validation",
                   "sweep_scan.make_char_scan_fn(handshake=False)"],
-    "compaction": ["compaction.compact", "compaction.expand", "pipeline3.route_right",
+    "compaction": ["compaction.compact", "compaction.expand",
                    "pipeline3 catalog lengths, too-long flags and word padding",
                    "pipeline3 slot prefix sums and token fetch",
                    "pipeline3 / pipeline2 short-miss and long masks and compactions",
                    "pieces.make_catalog_fn", "pieces.make_extract_fn",
-                   "pipeline2 extract_long", "pipeline2 assembly and row counts"],
+                   "pipeline2 extract_long", "pipeline3 / pipeline2 assembly and row counts"],
     "vocab_hit": ["pieces.make_vocab_hit_fn", "pieces.make_long_vocab_hit_fn"],
-    "slot_merge": ["slot_merge.make_slot_merge_fn(W=16)", "slot_merge.make_slot_merge_fn(W=64)"],
+    "slot_merge": ["slot_merge.make_slot_merge_fn(W=16)", "slot_merge.make_slot_merge_fn(W=64)",
+                   "pipeline3 / pipeline2 row-wise compaction of the merged slots and the long "
+                   "hits' lane-0 select", "pipeline3.route_right of the slot counts",
+                   "pipeline3 / pipeline2 single, count and combo selects"],
     "byte_scan": ["window_scan.make_seq_scan_fn", "window_scan.make_window_scan_fn",
                   "window_scan.make_orbit_fn"],
     "grid_merge": ["merge.make_merge_fn", "engine.build_pipeline_fn row assembly"],
     "pair_count": ["parallel.train.make_pair_count_step.per_shard", "parallel.train._pair_hash"],
 }
+# entry points that the slot merge's redesign took out: no chunk program
+# may launch them
+GONE_ENTRIES = ("tt_compact_rows", "tt_route", "tt_slot_merge", "tt_expand_tokens")
 # which kernels each path must launch
 PATH_KERNELS = {
     "v3": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
@@ -318,7 +331,7 @@ def touched(valid: torch.Tensor, elem_bytes: int) -> int:
     return int(v.reshape(-1, per).any(dim=1).sum()) * group
 
 
-def work_of(name, args, out) -> tuple[int, int]:
+def work_of(name, args, kwargs, out) -> tuple[int, int]:
     """(bytes the call must move, operations it must do) for this call's
     data: each input read once, and only where the call needs it (live
     entries, in 32-byte sectors; a table only the rows this data probes),
@@ -366,19 +379,6 @@ def work_of(name, args, out) -> tuple[int, int]:
         moved = (2 * touched(live, 4) + touched(miss, 16) + touched(lng, 4) + 4
                  + nbytes(outs))
         ops = lens.numel()
-    elif name == "compact_rows":
-        valid, vals = args
-        moved = valid.numel() + touched(valid, vals.element_size()) + nbytes(outs)
-        ops = valid.numel()
-    elif name == "route_right":
-        dst, values, _ = args
-        moved = dst.nbytes + touched(dst >= 0, values.element_size()) + nbytes(outs)
-        ops = dst.numel()
-    elif name == "expand_tokens":
-        counts, combo = args[:2]
-        fetched = int(counts[combo >= 0].sum())  # tokens read back from the merges
-        moved = nbytes([counts, combo]) + 4 * fetched + nbytes(outs)
-        ops = counts.numel() + int(out[1])
     elif name in ("vocab_hit", "long_vocab_hit"):
         buckets, words, lens = args[:3]
         live = lens > 0
@@ -386,15 +386,35 @@ def work_of(name, args, out) -> tuple[int, int]:
         moved = (touched(live, words[0].numel() * words.element_size()) + lens.nbytes
                  + nbytes(outs) + min(int(live.sum()) * row, buckets.nbytes))
         ops = int(live.sum()) * buckets.shape[1]
-    elif name == "slot_merge":
-        buckets, b2r, slot_bytes, lens = args[:4]
-        _, alive = out
-        L = lens.clamp(min=0).to(torch.int64)
-        merges = L - alive.sum(dim=1)
-        probes = int((L - 1).clamp(min=0).sum() + 2 * merges.sum())
-        moved = (touched(lens > 0, slot_bytes.shape[1]) + nbytes([lens, b2r]) + nbytes(outs)
+    elif name == "slot_merge_packed":
+        # the slots below n_real: the bytes and lengths of those that merge,
+        # the hits, the probed bucket rows; out the count of each live slot
+        # and the tokens below it
+        buckets, b2r, slot_bytes, lens, _seed, n_real = args[:6]
+        hit = kwargs.get("hit")
+        M, W = slot_bytes.shape
+        real = torch.arange(M, device=lens.device) < min(int(n_real), M)
+        is_hit = real & (hit != -1) if hit is not None else torch.zeros_like(real)
+        merging = real & ~is_hit
+        L = torch.where(merging, lens.clamp(0, W), 0).to(torch.int64)
+        cnt = torch.where(real, out[1], 0).to(torch.int64)
+        probes = int((L - 1).clamp(min=0).sum() + 2 * (L - torch.where(merging, cnt, 0)).sum())
+        moved = (touched(merging, W) + touched(real, 4) * (2 if hit is not None else 1)
+                 + b2r.nbytes + touched(real, 4) + 4 * int(cnt.sum())
                  + min(probes * 128, buckets.nbytes))
         ops = probes * 8
+    elif name == "piece_counts":
+        # the live pieces' lengths, hits and slots, the first word of the
+        # one-byte pieces and the merged slots' counts in; counts and combos
+        # of the live pieces out
+        n_pieces, lens, _hit, words, b2r, mslot, lslot, m_count, l_count = args
+        p = lens.shape[0]
+        live = torch.arange(p, device=lens.device) < min(int(n_pieces), p)
+        one = live & (lens == 1)
+        moved = (4 * touched(live, 4) + touched(one, 16) + b2r.nbytes
+                 + 4 * int((live & (mslot >= 0)).sum() + (live & (lslot >= 0)).sum())
+                 + 2 * touched(live, 4))
+        ops = int(live.sum())
     elif name == "seq_scan":
         packed, rows, n_payload, n_total = args
         mask, _ = outs
@@ -482,18 +502,11 @@ def library_call(name, args, out):
                     [torch.index_select(x, 0, l_) for x in (starts, lens)])
 
         return kinds, True
-    if name == "compact_rows":
-        valid, vals = args
-        return (lambda: torch.masked_select(vals, valid)), True
-    if name == "route_right":
-        dst, values, out_size = args
-        ok = dst >= 0
-        return (lambda: torch.zeros(out_size, dtype=values.dtype, device=values.device).index_put_(
-            (dst.clamp(min=0).to(torch.int64),), torch.where(ok, values, 0))), False
-    if name == "expand_tokens":
-        counts, combo = args[:2]
-        total = int(out[1])
-        return (lambda: torch.repeat_interleave(combo, counts, output_size=total)), False
+    if name == "piece_counts":
+        # the core of the entry: each merged piece's count gathered from its slot
+        mslot, m_count = args[5], args[7]
+        idx = mslot.clamp(0, m_count.shape[0] - 1).to(torch.int64)
+        return (lambda: torch.take(m_count, idx)), False
     if name == "catalog2":
         m = args[0].reshape(-1)
         flat_idx = torch.arange(m.numel(), dtype=torch.int32, device=m.device)
@@ -596,7 +609,7 @@ def kernel_phase(enc, docs, device="cuda", C: int = 32768):
     study = scan_study("v3 scan (tt_scan_rows)", kernels.scan_rows, dict(
         tables=t, flat=dev_inputs[0], row_off=dev_inputs[1], n_payload=dev_inputs[2],
         n_total=dev_inputs[3], is_doc_end=dev_inputs[4], KP=KP, KL=KL, na_frac=na_frac),
-        dict(n_payload=torch.zeros(32, dtype=torch.int32, device=rows.device)), steps)
+        ("row_off", "n_payload", "n_total", "is_doc_end"), steps)
     chunk_ms = gpu_ms(lambda: pipeline3.run_chunk(eng.tables, *dev_inputs, K=K), reps=5)
     log(f"chunk program C={C} K={K}: kernels == plain (n_pieces={hk[-5]} "
         f"n_miss={hk[-4]} n_long={hk[-3]} n_tokens={nt}); device time with the "
@@ -617,7 +630,16 @@ def plain_error(name, args, kwargs, out) -> int:
     its plain version's on the same inputs."""
     from tiktoken_tpu_torch.ops import kernels
 
-    want = flatten(getattr(kernels.PLAIN_OPS, name)(*args, **kwargs))
+    want = getattr(kernels.PLAIN_OPS, name)(*args, **kwargs)
+    if name == "slot_merge_packed":
+        # the slots below n_real, each slot's tokens below its count
+        (gt, gc), (wt, wc) = out, want
+        n = min(int(args[5]), gc.shape[0])
+        err = int((gc[:n].to(torch.int64) - wc[:n]).abs().max()) if n else 0
+        below = torch.arange(gt.shape[1], device=gt.device)[None, :] < wc[:n, None]
+        d = (gt[:n].to(torch.int64) - wt[:n]).abs() * below
+        return max(err, int(d.max()) if n else 0)
+    want = flatten(want)
     err = 0
     for g, w in zip(flatten(out), want, strict=True):
         if g.shape != w.shape:
@@ -643,34 +665,35 @@ def warp_steps(steps: torch.Tensor) -> tuple[float, int, float]:
     return float(s.mean()), int(s.max()), float(w.mean())
 
 
-def scan_study(kind: str, scan, rows_args: dict, nowalk_args: dict, steps: torch.Tensor) -> dict:
-    """The walk's step counts, the scan at 32-256 rows per block (each equal
-    to the default's outputs), and the cycles of one dependent walk step:
-    the scan of the first 32 rows (one warp walks) less the same rows with
-    no payload (no walk), over that warp's longest walk. Returns the
-    numbers, printed too."""
+def scan_study(kind: str, scan, rows_args: dict, per_row: tuple, steps: torch.Tensor,
+               knob: str = "SCAN_ROWS_PER_BLOCK") -> dict:
+    """The walk's step counts, the scan at 32-256 rows per block (the
+    ``kernels`` attribute ``knob``; each equal to the default's outputs),
+    and the cycles of one dependent walk step: the scan of the first 32
+    rows (one warp walks; ``per_row`` names the arguments cut to them) less
+    the same rows with no payload (no walk), over that warp's longest walk.
+    Returns the numbers, printed too."""
     from tiktoken_tpu_torch.ops import kernels
 
     mean, mx, warp_max = warp_steps(steps)
     log(f"{kind} walk steps per row: mean {mean:.2f}, max {mx}, mean of each warp's max "
         f"{warp_max:.2f} ({steps.numel()} rows)")
-    default = kernels.SCAN_ROWS_PER_BLOCK
+    default = getattr(kernels, knob)
     want = flatten(scan(**rows_args))
     sweep = {}
     try:
         for R in (32, 64, 128, 256):
-            kernels.SCAN_ROWS_PER_BLOCK = R
+            setattr(kernels, knob, R)
             got = flatten(scan(**rows_args))
             if not all(torch.equal(a, b) for a, b in zip(got, want, strict=True)):
                 raise RuntimeError(f"{kind}: {R} rows per block differ from {default}")
             sweep[R] = gpu_ms(lambda: scan(**rows_args))
-        first = {k: v[:32] if isinstance(v, torch.Tensor) and v.dim() and k != "flat" else v
-                 for k, v in rows_args.items()}
-        nowalk = {**first, **nowalk_args}
-        kernels.SCAN_ROWS_PER_BLOCK = default
+        first = {k: v[:32] if k in per_row else v for k, v in rows_args.items()}
+        nowalk = {**first, "n_payload": torch.zeros_like(first["n_payload"])}
+        setattr(kernels, knob, default)
         walk_ms = gpu_ms(lambda: scan(**first), reps=50) - gpu_ms(lambda: scan(**nowalk), reps=50)
     finally:
-        kernels.SCAN_ROWS_PER_BLOCK = default
+        setattr(kernels, knob, default)
     clock = sm_clock_hz()
     cycles = walk_ms * 1e-3 * clock / int(steps[:32].max())
     floor_ms = warp_max * cycles / clock * 1e3
@@ -704,7 +727,7 @@ def measure(calls, per: dict, program: str) -> None:
         err = plain_error(name, args, kwargs, out)
         ms = gpu_ms(lambda: k_fn(*args, **kwargs))
         plain_ms = wall_ms(lambda: p_fn(*args, **kwargs))
-        moved, ops = work_of(name, args, out)
+        moved, ops = work_of(name, args, kwargs, out)
         b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
         lib, syncs = library_call(name, args, out)
         lib_ms = None if lib is None else wall_ms(lib, rounds=5) if syncs else gpu_ms(lib)
@@ -758,7 +781,7 @@ def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
     overflowing chunk's stream is discarded and re-run through v1).
     Returns (the char route's calls, the byte route's seq_scan call, the v1
     calls, and the chunk ms of the char route, the byte route and v1)."""
-    from tiktoken_tpu_torch.ops import kernels, sweep_scan
+    from tiktoken_tpu_torch.ops import kernels, sweep_scan, window_scan
     from tiktoken_tpu_torch.ops.charclass import na_cap
     from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, pack_documents
     from tiktoken_tpu_torch.ops.pipeline2 import NA_FRAC, run_chunk2, run_rows1
@@ -796,7 +819,7 @@ def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
                                   pay, tot)
     study = scan_study("v2 scan (tt_char_scan)", kernels.char_scan, dict(
         tables=t.scan, rows=rows, n_payload=pay, n_total=tot, K=KL - 16, na_frac=NA_FRAC),
-        dict(n_payload=torch.zeros(32, dtype=torch.int32, device=rows.device)), steps)
+        ("rows", "n_payload", "n_total"), steps)
     # a chunk over the non-ASCII cap: the edge documents
     edge = pack_documents([x.encode() for x in (CJK * 40, "x" * 9000, "1a" * 600, CYR * 30,
                                                 ARABIC * 25)], DEFAULT_ROW)
@@ -837,6 +860,22 @@ def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
         raise RuntimeError("v2 chunk program (byte): kernels and plain versions disagree")
     if hb[-1]:
         raise RuntimeError("the v2 kernel-phase chunk overflowed its caps (byte)")
+    seq_args = dict(packed=tb.byte_scan, rows=rows, n_payload=pay, n_total=tot, K=KL - 16,
+                    hot=tb.byte_hot)
+    study_b = scan_study("v2 byte scan (tt_seq_scan)", kernels.seq_scan, seq_args,
+                         ("rows", "n_payload", "n_total"),
+                         window_scan.seq_walk(**{k: v for k, v in seq_args.items()
+                                                 if k != "hot"})[2],
+                         knob="SEQ_ROWS_PER_BLOCK")
+    cold = {**seq_args, "hot": 0}
+    if not all(torch.equal(a, b) for a, b in zip(kernels.seq_scan(**cold),
+                                                 kernels.seq_scan(**seq_args))):
+        raise RuntimeError("tt_seq_scan with no hot rows differs from the hot-row scan")
+    study_b["hot_rows"] = tb.byte_hot
+    study_b["no_hot_rows_ms"] = gpu_ms(lambda: kernels.seq_scan(**cold))
+    log(f"tt_seq_scan: {tb.byte_hot} hot states of {tb.byte_scan.shape[0]} in shared memory; "
+        f"{study_b['no_hot_rows_ms']:.4f} ms with none (every step from L2) against "
+        f"{study_b['sweep_ms'][kernels.SEQ_ROWS_PER_BLOCK]:.4f} ms")
     if not hk[-1]:
         same = np.array_equal(hk, hb) and torch.equal(tok_k[:nt], tok_kb[:nt])
         log(f"v2 chunk program: char and byte scanners give equal headers and tokens: {same}")
@@ -859,7 +898,7 @@ def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
         f"tokens={int(out_k[1].sum())}, row_bad={int(out_k[3].sum())}); device time with the "
         f"kernels {rows1_ms:.3f} ms")
     seq = [c for c in calls_b if c[0] == "seq_scan"]  # the rest repeats the char route's entries
-    return calls, seq, calls1, (chunk2_ms, chunk2b_ms, rows1_ms), study
+    return calls, seq, calls1, (chunk2_ms, chunk2b_ms, rows1_ms), study, study_b
 
 
 # ---------------------------------------------------------------------------
@@ -915,7 +954,8 @@ def main() -> int:
 
     # ---- 4b: the same on a v2 chunk under both scanners and its v1 re-run -----
     t0 = time.perf_counter()
-    calls2, calls2b, calls1, (chunk2_ms, chunk2b_ms, rows1_ms), study2 = kernel_phase2(enc, docs)
+    calls2, calls2b, calls1, (chunk2_ms, chunk2b_ms, rows1_ms), study2, study_b = \
+        kernel_phase2(enc, docs)
     measure(calls2, per, "v2")
     measure(calls2b, per, "v2_byte")
     measure(calls1, per, "v1")
@@ -1030,6 +1070,7 @@ def main() -> int:
             bound_by="bytes" if e["bytes_bound_ms"] >= e["ops_bound_ms"] else "operations",
             library_ms=e["library_ms"],
             **({"scan_study": {"v3": study3, "v2": study2}} if k == "scan_rows" else {}),
+            **({"scan_study": {"v2_byte": study_b}} if k == "byte_scan" else {}),
             by_program={prog: dict(
                 ms=sum(x["ms"] for x in e["entries"] if x["program"] == prog),
                 plain_ms=sum(x["plain_ms"] for x in e["entries"] if x["program"] == prog),
@@ -1065,6 +1106,13 @@ def counted(path: str, launches: dict, fn):
     for k in PATH_KERNELS[path]:
         if launches[path]["kernels"][k] <= 0:
             raise RuntimeError(f"kernel {k} was not launched on the {path} path")
+    gone = [e for e in GONE_ENTRIES if launches[path]["entries"].get(e, 0)]
+    if gone:
+        raise RuntimeError(f"the {path} path launched {gone}")
+    if "slot_merge" in PATH_KERNELS[path]:
+        for e in ("tt_slot_merge_packed", "tt_piece_counts"):
+            if launches[path]["entries"].get(e, 0) <= 0:
+                raise RuntimeError(f"{e} was not launched on the {path} path")
     return out, secs
 
 

@@ -285,20 +285,14 @@ def kernels_flat(out):
 
 
 def test_route_and_expand_match_jax_and_numpy():
+    """The expansion; the routes of the slot counts to their pieces are now
+    ``piece_counts``' gathers (test_piece_counts_matches_select_glue)."""
     from tiktoken_tpu.ops.compaction import expand as jexpand
-    from tiktoken_tpu.ops.compaction import route_right_multi
 
-    from tiktoken_tpu_torch.ops.compaction import expand, expand_numpy, route_right
+    from tiktoken_tpu_torch.ops.compaction import expand, expand_numpy
 
     rng = np.random.default_rng(6)
-    n, out = 200, 260
-    dst = np.sort(rng.choice(out, size=n, replace=False)).astype(np.int32)
-    dst[rng.random(n) < 0.3] = -1  # dropped entries
-    vals = rng.integers(0, 2**31, n).astype(np.int32)
-    (jr,) = route_right_multi(jnp.asarray(dst), [jnp.asarray(vals)], out)
-    np.testing.assert_array_equal(
-        route_right(torch.from_numpy(dst), torch.from_numpy(vals), out).numpy(), np.asarray(jr))
-
+    n = 200
     for out_size in (400, 150):  # roomy and cropped
         counts = rng.integers(0, 5, n).astype(np.int32)
         counts[rng.random(n) < 0.3] = 0
@@ -472,9 +466,132 @@ def test_slot_merge_matches_jax_and_numpy(vocab_tables, W):
     assert (ga.sum(axis=1) < lens).any(), "some pieces must merge"
 
 
+def _left_packed(tok: np.ndarray, alive: np.ndarray):
+    """Each row's alive tokens left-packed (zero past the count), counts."""
+    out = np.zeros_like(tok)
+    cnt = alive.sum(axis=1).astype(np.int32)
+    for m in range(tok.shape[0]):
+        out[m, : cnt[m]] = tok[m][alive[m]]
+    return out, cnt
+
+
+@pytest.mark.parametrize("W", [16, 64])
+def test_slot_merge_packed_matches_jax_left_packed(vocab_tables, W):
+    """The fused merge: JAX's make_slot_merge_fn, then the row-wise
+    left-pack of its alive lanes, over the slots below n_real; a long slot
+    with a whole-piece hit is that one token."""
+    from tiktoken_tpu.ops.slot_merge import make_slot_merge_fn
+
+    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops.slot_merge import slot_merge_packed
+
+    pt, _, _ = vocab_tables
+    rng = np.random.default_rng(20 + W)
+    text = make_mixed_corpus(6000, seed=W + 1).encode()
+    M, n_real = 56, 49
+    slots = np.zeros((M, W), np.uint8)
+    lens = rng.integers(0, W + 1, M).astype(np.int32)
+    for i in range(M):
+        off = int(rng.integers(0, len(text) - W))
+        slots[i, : lens[i]] = np.frombuffer(text[off : off + lens[i]], np.uint8)
+    # leftmost ties: one pair repeated across the slot
+    a, b = next(iter(((k[0], k[1]) for k in make_encoding("o200k", 800)._mergeable_ranks
+                      if len(k) == 2)))
+    slots[0, :10], lens[0] = [a, b] * 5, 10
+    slots[1, :9], lens[1] = [a] * 9, 9
+    slots[2, :W], lens[2] = [a, b] * (W // 2), W  # a full slot
+    hit = None
+    L = lens.copy()
+    if W == 64:
+        hit = np.where(rng.random(M) < 0.3, rng.integers(0, 5000, M), -1).astype(np.int32)
+        hit[:3] = -1
+        L = np.where(hit != -1, 0, lens)
+    jt, ja, _ = jax.jit(make_slot_merge_fn(pt.seed, pt.n_buckets, W))(
+        jnp.asarray(pt.buckets), jnp.asarray(pt.byte_to_rank), jnp.asarray(slots),
+        jnp.asarray(L))
+    want_tok, want_cnt = _left_packed(np.asarray(jt), np.asarray(ja))
+    if hit is not None:
+        is_hit = hit != -1
+        want_tok[is_hit, 0], want_cnt[is_hit] = hit[is_hit], 1
+    args = (_i32(pt.buckets), _i32(pt.byte_to_rank), torch.from_numpy(slots),
+            torch.from_numpy(lens), pt.seed, torch.tensor(n_real, dtype=torch.int32),
+            None if hit is None else torch.from_numpy(hit))
+    got_tok, got_cnt = slot_merge_packed(*args)
+    kt, kc = kernels.slot_merge_packed(*args)  # the wrapper takes the plain version on the CPU
+    assert torch.equal(kt, got_tok) and torch.equal(kc, got_cnt)
+    got_tok, got_cnt = _u32(got_tok), got_cnt.numpy()
+    np.testing.assert_array_equal(got_cnt[:n_real], want_cnt[:n_real])
+    for m in range(n_real):
+        np.testing.assert_array_equal(got_tok[m, : want_cnt[m]], want_tok[m, : want_cnt[m]],
+                                      err_msg=f"slot {m}")
+    assert (want_cnt[:n_real] < np.minimum(lens, W)[:n_real]).any(), "some pieces must merge"
+    assert want_cnt[n_real:].any(), "slots past n_real must hold work that is left out"
+
+
+def test_piece_counts_matches_select_glue():
+    """piece_counts on a real v2 chunk's catalog (singles, short misses,
+    long hits and long misses) equals the select glue it replaces: the
+    slot counts routed to their pieces by piece index, then the selects."""
+    import tiktoken_tpu_torch
+    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops.engine import pack_documents
+    from tiktoken_tpu_torch.ops.pipeline2 import NA_FRAC, chunk_caps2
+
+    ranks = dict(make_encoding("o200k", 800)._mergeable_ranks)
+    long_words = [b"abcdefghijklmnopqrstu", b" internationalization", b"x" * 40]
+    for w in long_words:
+        ranks[w] = len(ranks)
+    enc = tiktoken_tpu_torch.Encoding("counts", pat_str=pat_str("o200k"), mergeable_ranks=ranks,
+                                      special_tokens={})
+    t = enc.engine("cpu").tables
+    text = (make_mixed_corpus(1500, seed=3) + " abcdefghijklmnopqrstu internationalization "
+            + "x" * 40 + " zyxwvutsrqponmlkjihgfedcba " + "q" * 50 + " a b")
+    batch = pack_documents([text.encode()], 256)
+    C = 8
+    rows, pay, tot = (torch.from_numpy(np.ascontiguousarray(a[:C]))
+                      for a in (batch.rows, batch.n_payload, batch.n_total))
+    caps = chunk_caps2(256, C)
+    p_cap, m_cap, l_cap = caps["p_cap"], caps["m_cap"], caps["l_cap"]
+    ps, bad, _ = kernels.char_scan(t.scan, rows, pay, tot, K=256, na_frac=NA_FRAC)
+    starts, words, lens, bad, n_pieces = kernels.catalog2(ps, pay, rows, bad, p_cap)
+    hit = kernels.vocab_hit(t.vocab_buckets, words, torch.where(lens <= 16, lens, 0),
+                            t.vocab_seed)
+    (m_words, m_lens, m_pid), n_miss, mslot, (l_starts, l_lens, l_pid), n_long, lslot = \
+        kernels.compact_kinds(words, starts, lens, hit, n_pieces, m_cap, l_cap)
+    _, m_count = kernels.slot_merge_packed(t.pair_buckets, t.byte_to_rank,
+                                           m_words.view(torch.uint8), m_lens, t.pair_seed, n_miss)
+    l_bytes = kernels.extract_slots(rows, l_starts, l_lens, 256)
+    l_hit = kernels.long_vocab_hit(t.long_buckets, l_bytes, l_lens, t.long_seed)
+    _, l_count = kernels.slot_merge_packed(t.pair_buckets, t.byte_to_rank, l_bytes, l_lens,
+                                           t.pair_seed, n_long, hit=l_hit)
+    counts, combo = kernels.piece_counts(n_pieces, lens, hit, words, t.byte_to_rank, mslot,
+                                         lslot, m_count, l_count)
+
+    # the replaced glue: routes of the slot counts by piece index, then selects
+    def route(pid, real, cnt):
+        out = np.zeros(p_cap + 1, np.int64)
+        out[np.where(real, pid, p_cap)] = np.where(real, cnt, 0)
+        return out[:p_cap]
+
+    ln, ht, ms, ls = (x.numpy().astype(np.int64) for x in (lens, hit, mslot, lslot))
+    counts_m = route(m_pid.numpy(), np.arange(m_cap) < int(n_miss), m_count.numpy())
+    counts_l = route(l_pid.numpy(), np.arange(l_cap) < int(n_long), l_count.numpy())
+    single_tok = np.where(ln == 1, t.byte_to_rank.numpy()[words.numpy()[:, 0] & 0xFF], ht)
+    is_single = (ln == 1) | ((ln >= 2) & (ln <= 16) & (ht != -1))
+    want_counts = np.where(is_single, 1, np.where(ms >= 0, counts_m, np.where(ls >= 0, counts_l,
+                                                                              0)))
+    base = np.where(ms >= 0, np.clip(ms, 0, m_cap - 1) * 16,
+                    np.where(ls >= 0, m_cap * 16 + np.clip(ls, 0, l_cap - 1) * 64, 0))
+    want_combo = np.where(is_single, (single_tok | -0x80000000), base).astype(np.int32)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    np.testing.assert_array_equal(combo.numpy(), want_combo)
+    lh = l_hit.numpy()[: int(n_long)]
+    assert int(n_miss) > 0 and is_single.any() and (lh != -1).any() and (lh == -1).any()
+
+
 def test_wrappers_reject_non_cuda_devices():
     from tiktoken_tpu_torch.ops import kernels
 
     m = torch.empty((4, 4), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        kernels.slot_merge(m, m, m, m, 0)
+        kernels.slot_merge_packed(m, m, m, m, 0, m)

@@ -148,3 +148,44 @@ def test_orbit_matches_jax(dfas):
         np.testing.assert_array_equal(ps, jps)
         # the JAX v1 program's row flags (ops/engine.py build_pipeline_fn)
         np.testing.assert_array_equal(bad, (jps & (u | (h <= 0))).any(axis=1))
+
+
+@pytest.mark.parametrize("name", ["r50k", "cl100k", "o200k"])
+def test_hot_table_scans_equal_byte_table(dfas, name):
+    """The renumbered table the kernels read (its ASCII states first) gives
+    the plain scans' and the numpy spec's outputs of ``byte_scan_table``, on
+    bench-corpus rows and the edge documents; its first H states are closed
+    under ASCII bytes, with DEAD and START kept at 0 and 1."""
+    from chip_smoke import make_bench_corpus
+    from tiktoken_tpu_torch.ops.regex_compiler import compile_pattern
+    from tiktoken_tpu_torch.ops.window_scan import (
+        ACC_BITS, byte_class_grid, byte_scan_table, hot_byte_scan_table, seq_scan_numpy,
+        seq_walk, window_scan)
+
+    dfa = dfas[name][1] if name in dfas else compile_pattern(pat_str(name))
+    plain = byte_scan_table(dfa)
+    hot, H = hot_byte_scan_table(dfa)
+    assert hot.shape == plain.shape and hot.dtype == np.int32 and 2 < H < hot.shape[0]
+    nxt = hot >> ACC_BITS
+    assert (nxt[:H, :128] < H).all(), "the first H states are closed under ASCII bytes"
+    assert (nxt[1:H, :128] > 0).any() and (hot[0] >> ACC_BITS == 0).all()  # DEAD stays 0
+    assert np.array_equal(np.sort(hot & ((1 << ACC_BITS) - 1), axis=None),
+                          np.sort(plain & ((1 << ACC_BITS) - 1), axis=None))
+    texts = [make_bench_corpus(1500, seed=7)] + TEXTS["edges"]
+    rows, pay, tot = _rows(texts, 64)
+    tr, tp, tt = (torch.from_numpy(x) for x in (rows, pay, tot))
+    cls = byte_class_grid(tr, tt, KL + 1).numpy()
+    got = seq_walk(torch.from_numpy(hot), tr, tp, tt, K=K)
+    want = seq_walk(torch.from_numpy(plain), tr, tp, tt, K=K)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+    for b in range(rows.shape[0]):
+        m, nb = seq_scan_numpy(dfa, hot, cls[b], pay[b], tot[b], K)
+        wm, wb = seq_scan_numpy(dfa, plain, cls[b], pay[b], tot[b], K)
+        np.testing.assert_array_equal(m, wm)
+        assert nb == wb == bool(got[1][b])
+        np.testing.assert_array_equal(got[0][b].numpy(), m)
+    for g, w in zip(window_scan(torch.from_numpy(hot), tr, tt, K=K, window=W),
+                    window_scan(torch.from_numpy(plain), tr, tt, K=K, window=W), strict=True):
+        assert torch.equal(g, w)
+    assert got[1].any() and int(got[2].max()) > K  # bad rows; walks longer than a row

@@ -10,8 +10,11 @@ A pure-Python implementation of the reference core's semantics
   src/lib.rs:367).
 
 ``HostBPE`` splits text with the port's own char-level scanner DFA
-(``ops.regex_compiler.scan_codepoints``), so it needs neither the
-``regex`` module nor the reference library.
+(``ops.regex_compiler.scan_codepoints``), so the patterns of the shipped
+encodings need neither the ``regex`` module nor the reference library. A
+pattern outside the DFA compiler's dialect (lookbehind, ``\\b``,
+backreferences) is split with the ``regex`` module instead, imported at
+that first split, over ``rust_compat_pattern(pattern)``.
 """
 
 from __future__ import annotations
@@ -19,9 +22,56 @@ from __future__ import annotations
 import heapq
 from typing import Iterable
 
-from tiktoken_tpu_torch.ops.regex_compiler import compile_pattern_chars, scan_codepoints
+from tiktoken_tpu_torch.ops.regex_compiler import (
+    PatternError,
+    compile_pattern_chars,
+    scan_codepoints,
+)
 
 RANK_MAX = 0xFFFFFFFF
+
+
+def rust_compat_pattern(pat_str: str) -> str:
+    """Rewrite a pat_str so Python's ``regex`` module matches the reference
+    engine's semantics.
+
+    Differences papered over:
+    - ``\\s`` / ``\\S``: the reference engine uses the Unicode White_Space
+      property; Python's regex module uses a slightly larger set.
+    - ``$``: the reference engine (no multi-line flag) anchors at the very
+      end of the haystack; Python's ``$`` also matches before a final
+      newline, so use ``\\Z``.
+    """
+    ws = "\\t\\n\\x0b\\x0c\\r \\x85\\xa0\\u1680\\u2000-\\u200a\\u2028\\u2029\\u202f\\u205f\\u3000"
+    out: list[str] = []
+    in_class = False
+    i = 0
+    while i < len(pat_str):
+        ch = pat_str[i]
+        if ch == "\\" and i + 1 < len(pat_str):
+            nxt = pat_str[i + 1]
+            if nxt == "s":
+                # bare characters inside a class, a bracketed class outside
+                out.append(ws if in_class else f"[{ws}]")
+            elif nxt == "S":
+                if in_class:
+                    raise NotImplementedError(r"\S inside a character class")
+                out.append(f"[^{ws}]")
+            else:
+                out.append(ch + nxt)
+            i += 2
+            continue
+        if not in_class and ch == "[":
+            in_class = True
+        elif in_class and ch == "]":
+            in_class = False
+        elif not in_class and ch == "$":
+            out.append(r"\Z")
+            i += 1
+            continue
+        out.append(ch)
+        i += 1
+    return "".join(out)
 
 
 def byte_pair_merge_boundaries(ranks: dict[bytes, int], piece: bytes) -> list[int]:
@@ -141,6 +191,19 @@ def byte_pair_encode(piece: bytes, ranks: dict[bytes, int]) -> list[int]:
     return [ranks[piece[parts[i] : parts[i + 1]]] for i in range(len(parts) - 1)]
 
 
+def _compile_regex(pattern: str, refused: PatternError):
+    """``pattern`` compiled by the ``regex`` module, for a pattern that the
+    DFA compiler refused with ``refused``; without that module, a
+    ``PatternError`` that says so."""
+    try:
+        import regex
+    except ImportError:
+        raise PatternError(
+            f"pat_str {pattern!r} is outside the char DFA's dialect ({refused}), and the "
+            "'regex' module that splits such patterns on the host is not installed") from refused
+    return regex.compile(rust_compat_pattern(pattern))
+
+
 class HostBPE:
     """Exact host engine over one vocabulary and split pattern."""
 
@@ -149,6 +212,7 @@ class HostBPE:
         self.encoder = dict(encoder)
         self.pattern = pattern
         self._dfa = None  # compiled at first use
+        self._regex = None  # the regex module's pattern, where the DFA compile fails
         self.decoder: dict[int, bytes] = {v: k for k, v in self.encoder.items()}
         if len(self.encoder) != len(self.decoder):
             raise ValueError(
@@ -160,9 +224,16 @@ class HostBPE:
         }
 
     def split(self, text: str) -> list[str]:
-        """The pattern's pieces of ``text`` (maximal munch, char DFA)."""
-        if self._dfa is None:
-            self._dfa = compile_pattern_chars(self.pattern)
+        """The pattern's pieces of ``text``: maximal munch over the char
+        DFA, or the ``regex`` module's ``finditer`` for a pattern the DFA
+        compiler refuses."""
+        if self._dfa is None and self._regex is None:
+            try:
+                self._dfa = compile_pattern_chars(self.pattern)
+            except PatternError as e:
+                self._regex = _compile_regex(self.pattern, e)
+        if self._regex is not None:
+            return [m.group() for m in self._regex.finditer(text)]
         starts = scan_codepoints(self._dfa, text)
         bounds = starts + [len(text)]
         return [text[a:b] for a, b in zip(bounds, bounds[1:])]

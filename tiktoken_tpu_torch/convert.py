@@ -27,7 +27,7 @@ from tiktoken_tpu_torch.ops.pair_table import EMPTY_KEY, PairTable
 from tiktoken_tpu_torch.ops.pieces import LongVocabTable, VocabTable
 from tiktoken_tpu_torch.ops.pipeline3 import ChunkTables, upload_tables
 from tiktoken_tpu_torch.ops.regex_compiler import ScannerDFA
-from tiktoken_tpu_torch.ops.window_scan import byte_scan_table
+from tiktoken_tpu_torch.ops.window_scan import hot_byte_scan_table
 
 
 def host_tables_from_numpy(arrays: dict[str, np.ndarray], meta: dict[str, int]):
@@ -81,6 +81,6 @@ def tables_from_numpy(arrays: dict[str, np.ndarray], meta: dict[str, int],
     dev = resolve_device(device)
     tables = upload_tables(*host_tables_from_numpy(arrays, meta), dev)
     if "byte_trans" in arrays:
-        tables.byte_scan = torch.as_tensor(byte_scan_table(_byte_dfa(arrays, meta)),
-                                           device=dev)
+        table, tables.byte_hot = hot_byte_scan_table(_byte_dfa(arrays, meta))
+        tables.byte_scan = torch.as_tensor(table, device=dev)
     return tables

@@ -8,8 +8,6 @@ plain PyTorch versions, with exactly the JAX contracts:
 
 - ``compact``: zero fill past the count; the count is not clamped
   (callers compare it with ``out_size`` to detect overflow);
-- ``route_right``: ``out[dst[i]] = values[i]`` for ``0 <= dst[i] <
-  out_size``, zero elsewhere;
 - ``expand``: returns ``(payloads, k, valid, total)``.
 
 The chunk programs call the kernel's functions, which carry those
@@ -18,9 +16,12 @@ piece catalog with lengths, too-long row flags and padded words),
 ``catalog2`` (the v2 one, over a [C, K] start grid), ``compact_slots``
 (``compact`` with each entry's slot), ``compact_kinds`` (the short-miss
 and long compactions of one catalog, their masks included),
-``compact_rows`` (with per-row counts), ``extract_slots`` (the v2
-long-piece slots), ``expand_tokens`` (``expand`` with the token fetch)
-and ``expand_tokens_rows`` (with the token count of each row).
+``extract_slots`` (the v2 long-piece slots), ``expand_tokens`` (``expand``
+with the token fetch) and ``expand_tokens_rows`` (with the token count of
+each row). ``compact_rows`` (with per-row counts) is the left-pack of the
+plain ``slot_merge_packed``, and ``piece_counts`` (the expansion's
+per-piece counts and combos) the plain version of the ``slot_merge``
+kernel's second entry point.
 """
 
 from __future__ import annotations
@@ -154,15 +155,37 @@ def compact_rows(valid: torch.Tensor, vals: torch.Tensor):
     return out, count
 
 
-def route_right(dst: torch.Tensor, values: torch.Tensor, out_size: int) -> torch.Tensor:
-    """Monotone route: out[dst[i]] = values[i] where 0 <= dst[i] <
-    out_size (dst strictly increasing over routed entries), zero
-    elsewhere."""
-    ok = (dst >= 0) & (dst < out_size)
-    tgt = torch.where(ok, dst, out_size).to(torch.int64)
-    out = torch.zeros(out_size + 1, dtype=values.dtype, device=values.device)
-    out.scatter_(0, tgt, values.masked_fill(~ok, 0))
-    return out[:out_size]
+def piece_counts(n_pieces: torch.Tensor, lens: torch.Tensor, hit: torch.Tensor,
+                 words: torch.Tensor, byte_to_rank: torch.Tensor, mslot: torch.Tensor,
+                 lslot: torch.Tensor, m_count: torch.Tensor, l_count: torch.Tensor):
+    """The expansion's input (B8): each piece's token count and combo.
+
+    A live piece (below n_pieces) of one byte, or of 2..16 bytes with a
+    whole-piece hit (hit != -1), is a single: count 1, combo its token
+    (``byte_to_rank`` of its first byte, or the hit) with bit 31 set. A
+    short miss (mslot >= 0) counts ``m_count[mslot]`` tokens from base
+    mslot * 16 of the merged slots; a long piece (lslot >= 0)
+    ``l_count[lslot]`` from base m_cap * 16 + lslot * 64 (slots clamped to
+    the caps; a slot past its cap counts 0). Every other entry is 0.
+    (n_pieces i32 scalar, lens, hit, mslot, lslot [p] i32, words [p, 4]
+    i32, byte_to_rank [256] i32, m_count [m_cap], l_count [l_cap] i32) ->
+    (counts [p] i32, combo [p] i32)."""
+    m_cap, l_cap = m_count.shape[0], l_count.shape[0]
+    live = torch.arange(lens.shape[0], device=lens.device) < n_pieces
+    first_byte = (words[:, 0] & 0xFF).to(torch.int64)
+    single_tok = torch.where(lens == 1, byte_to_rank[first_byte], hit)
+    is_single = live & ((lens == 1) | ((lens >= 2) & (lens <= SLOT) & (hit != -1)))
+    is_short_miss, is_long = live & (mslot >= 0), live & (lslot >= 0)
+    ms, ls = mslot.clamp(0, m_cap - 1), lslot.clamp(0, l_cap - 1)
+    counts = torch.where(is_single, 1, torch.where(
+        is_short_miss & (mslot < m_cap), m_count[ms.to(torch.int64)],
+        torch.where(is_long & (lslot < l_cap), l_count[ls.to(torch.int64)], 0)))
+    # unified token base: short-miss slot s -> s*16, long slot s -> m_cap*16
+    # + s*64; a single piece carries its id in-band, flagged by bit 31
+    base = torch.where(is_short_miss, ms * SLOT,
+                       torch.where(is_long, m_cap * SLOT + ls * LONG_SLOT, 0))
+    combo = torch.where(is_single, single_tok | -0x80000000, base)
+    return counts.to(torch.int32), combo.to(torch.int32)
 
 
 def expand(counts: torch.Tensor, payloads, out_size: int):

@@ -62,8 +62,12 @@ from tiktoken_tpu_torch.ops.pipeline3 import (
     upload_tables,
 )
 from tiktoken_tpu_torch.ops.pipeline2 import DEFAULT_ROW, LOOK, SCANNERS, run_chunk2, run_rows1
-from tiktoken_tpu_torch.ops.regex_compiler import compile_pattern, compile_pattern_chars
-from tiktoken_tpu_torch.ops.window_scan import byte_scan_table
+from tiktoken_tpu_torch.ops.regex_compiler import (
+    PatternError,
+    compile_pattern,
+    compile_pattern_chars,
+)
+from tiktoken_tpu_torch.ops.window_scan import hot_byte_scan_table
 
 DEFAULT_CHUNK_ROWS = 32768
 # chunk sizes quantize to these tiers, so small corpora run small chunks
@@ -471,7 +475,13 @@ class TorchEngine:
     @staticmethod
     def build(pat_str: str, mergeable_ranks: dict[bytes, int], device="cuda") -> "TorchEngine":
         dev = resolve_device(device)
-        char, pair, vocab, long = host_tables(pat_str, mergeable_ranks)
+        try:
+            char, pair, vocab, long = host_tables(pat_str, mergeable_ranks)
+        except PatternError as e:
+            raise PatternError(
+                f"pat_str {pat_str!r} uses a construct outside the device scanner's dialect "
+                f"({e}). Encode on the host instead: Encoding.encode_ordinary, which accepts "
+                "any pattern the regex module compiles.") from e
         report = _vocab_readiness(mergeable_ranks, pair, vocab, long)
         return TorchEngine(upload_tables(char, pair, vocab, long, dev), report, pat_str)
 
@@ -481,13 +491,15 @@ class TorchEngine:
         or compiled from the pattern, and uploaded."""
         if self.tables.byte_scan is None:
             if self.byte_source is not None:
-                table = self.byte_source.byte_tables().byte_scan
+                src = self.byte_source.byte_tables()
+                table, hot = src.byte_scan, src.byte_hot
             elif self.pat_str is not None:
-                table = torch.as_tensor(byte_scan_table(compile_pattern(self.pat_str)))
+                table, hot = hot_byte_scan_table(compile_pattern(self.pat_str))
+                table = torch.as_tensor(table)
             else:
                 raise ValueError("the engine has neither a byte-level scan table nor a "
                                  "pattern to compile one from")
-            self.tables.byte_scan = table.to(self.device)
+            self.tables.byte_scan, self.tables.byte_hot = table.to(self.device), hot
         return self.tables
 
     def upload(self, arrays) -> list[torch.Tensor]:

@@ -10,12 +10,14 @@ bounds it and how its design answers that):
   and the v2 rows' char classes and scan without the handshake
   (``char_scan``), the two scans one kernel body;
 - ``compaction``: the v3 and v2 piece catalogs, the fused short-miss and
-  long compactions of a catalog (``compact_kinds``), row-wise stable
-  compaction, slot extraction, monotone routing and the expansion into
-  the token stream (with per-row counts for v2), the catalogs, the kind
-  compactions and the expansions each one launch by decoupled look-back;
+  long compactions of a catalog (``compact_kinds``), slot extraction and
+  the expansion into the token stream with per-row counts, the catalogs,
+  the kind compactions and the expansion each one launch by decoupled
+  look-back;
 - ``vocab_hit``: whole-piece vocabulary hits, short and long tables;
-- ``slot_merge``: greedy BPE in 16- and 64-byte slots;
+- ``slot_merge``: greedy BPE in 16- and 64-byte slots below a device
+  count, the tokens left-packed (``slot_merge_packed``), and the
+  expansion's per-piece counts and combos (``piece_counts``);
 - ``byte_scan``: the byte-level scanners, the v2 sequential scan
   (``seq_scan``), the v1 window scan (``window_scan``) and orbit
   (``orbit``);
@@ -66,6 +68,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # block has four threads per row to stage and classify, one to walk it;
 # chip_smoke.py sweeps 32-256
 SCAN_ROWS_PER_BLOCK = 128
+# rows per block of the byte-level sequential scan (tt_seq_scan), 32-256;
+# chip_smoke.py sweeps 32-256
+SEQ_ROWS_PER_BLOCK = 128
+# the most hot rows of the byte scan table kept in shared memory (64 rows
+# of 257 int32, 66 KB)
+HOT_ROWS_MAX = 64
 
 # kernel launches since the last reset_launches(), by kernel
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -92,9 +100,6 @@ _SIGNATURES = {
     },
     "compaction": {
         "tt_catalog": [_P, _I, _I, _P, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P],
-        "tt_compact_rows": [_P, _P, _I, _I, _P, _P, _P],
-        "tt_route": [_P, _P, _I, _I, _P, _P],
-        "tt_expand_tokens": [_P, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _P, _P, _P],
         "tt_catalog2": [_P, _I, _I, _P, _P, _I, _P, _LL, _P, _P, _P, _P, _P, _P, _P],
         "tt_extract_slots": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
         "tt_expand_tokens_rows": [_P, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _I, _I, _P, _P, _P,
@@ -108,11 +113,14 @@ _SIGNATURES = {
         "tt_long_vocab_hit": [_P, _I, _P, _P, _I, _U, _P, _P],
     },
     "slot_merge": {
-        "tt_slot_merge": [_I, _P, _I, _U, _P, _P, _P, _I, _P, _P, _P],
+        "tt_slot_merge_packed": [_I, _P, _I, _U, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+        "tt_piece_counts": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     },
     "byte_scan": {
-        "tt_seq_scan": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+        "tt_seq_scan": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
         "tt_window_scan": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _LL, _P, _P, _P, _P],
+        "tt_seq_smem": [_I, _I, _I, _I],
+        "tt_byte_max_smem": [],
         "tt_orbit": [_P, _P, _P, _I, _I, _P, _P, _P],
     },
     "grid_merge": {
@@ -398,53 +406,6 @@ def compact_kinds(words, starts, lens, hit, n_pieces, m_cap: int, l_cap: int):
     return (m_words, m_lens, m_pid), n_miss, mslot, (l_starts, l_lens, l_pid), n_long, lslot
 
 
-def compact_rows(valid, vals):
-    """Row-wise stable compaction of vals [M, W] i32 by valid [M, W],
-    zero-filled -> (out [M, W] i32, count [M] i32)."""
-    if _on_cpu(valid):
-        return compaction.compact_rows(valid, vals)
-    dev = _dev(valid)
-    M, W = vals.shape
-    args = [_check("valid", valid, torch.bool, (M, W), dev),
-            _check("vals", vals, torch.int32, (M, W), dev), M, W]
-    out = torch.empty((M, W), dtype=torch.int32, device=dev)
-    count = torch.empty(M, dtype=torch.int32, device=dev)
-    _call("compaction", "tt_compact_rows", dev, *args, out.data_ptr(), count.data_ptr())
-    return out, count
-
-
-def route_right(dst, values, out_size: int):
-    """out[dst[i]] = values[i] (0 <= dst[i] < out_size), zero elsewhere."""
-    if _on_cpu(dst):
-        return compaction.route_right(dst, values, out_size)
-    dev = _dev(dst)
-    (n,) = dst.shape
-    args = [_check("dst", dst, torch.int32, (n,), dev),
-            _check("values", values, torch.int32, (n,), dev), n, out_size]
-    out = torch.empty(out_size, dtype=torch.int32, device=dev)
-    _call("compaction", "tt_route", dev, *args, out.data_ptr())
-    return out
-
-
-def expand_tokens(counts, combo, m_tok, l_tok, out_size: int):
-    """B8's token stream -> (tokens [out_size] i32, total i32); see
-    ``compaction.expand_tokens``."""
-    if _on_cpu(counts):
-        return compaction.expand_tokens(counts, combo, m_tok, l_tok, out_size)
-    dev = _dev(counts)
-    (n,) = counts.shape
-    args = [_check("counts", counts, torch.int32, (n,), dev),
-            _check("combo", combo, torch.int32, (n,), dev), n,
-            _check("m_tok", m_tok, torch.int32, None, dev), m_tok.numel(),
-            _check("l_tok", l_tok, torch.int32, None, dev), l_tok.numel(), out_size]
-    tok = torch.empty(out_size, dtype=torch.int32, device=dev)
-    total = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = _tile_scratch(n, dev)
-    _call("compaction", "tt_expand_tokens", dev, *args, tok.data_ptr(), total.data_ptr(),
-          scratch.data_ptr())
-    return tok, total
-
-
 # ---------------------------------------------------------------------------
 # vocab_hit
 # ---------------------------------------------------------------------------
@@ -487,12 +448,16 @@ def long_vocab_hit(buckets, slot_bytes, lens, seed: int):
 # ---------------------------------------------------------------------------
 
 
-def slot_merge(buckets, byte_to_rank, slot_bytes, lens, seed: int):
+def slot_merge_packed(buckets, byte_to_rank, slot_bytes, lens, seed: int, n_real, hit=None):
     """(pair buckets [nb, 32] i32, byte_to_rank [256] i32, slot_bytes
-    [M, W] u8 with W in (16, 64), lens [M] i32) -> (tokens [M, W] i32,
-    alive [M, W] bool)."""
+    [M, W] u8 with W in (16, 64), lens [M] i32, n_real 0-d i32, hit [M] i32
+    or None) -> (tok_p [M, W] i32, count [M] i32): the slots below n_real
+    merged, their tokens left-packed; see ``slot_merge.slot_merge_packed``.
+    Entries past a slot's count and slots at or past n_real are left as
+    ``torch.empty`` gave them."""
     if _on_cpu(slot_bytes):
-        return slot_merge_mod.slot_merge(buckets, byte_to_rank, slot_bytes, lens, seed)
+        return slot_merge_mod.slot_merge_packed(buckets, byte_to_rank, slot_bytes, lens, seed,
+                                                n_real, hit)
     dev = _dev(slot_bytes)
     M, W = slot_bytes.shape
     if W not in (16, 64):
@@ -503,11 +468,37 @@ def slot_merge(buckets, byte_to_rank, slot_bytes, lens, seed: int):
     args = [W, _check("buckets", buckets, torch.int32, (nb, 32), dev), nb, seed,
             _check("byte_to_rank", byte_to_rank, torch.int32, (256,), dev),
             _check("slot_bytes", slot_bytes, torch.uint8, (M, W), dev),
-            _check("lens", lens, torch.int32, (M,), dev), M]
-    tok = torch.empty((M, W), dtype=torch.int32, device=dev)
-    alive = torch.empty((M, W), dtype=torch.bool, device=dev)
-    _call("slot_merge", "tt_slot_merge", dev, *args, tok.data_ptr(), alive.data_ptr())
-    return tok, alive
+            _check("lens", lens, torch.int32, (M,), dev), M,
+            _check("n_real", n_real, torch.int32, (), dev),
+            None if hit is None else _check("hit", hit, torch.int32, (M,), dev)]
+    tok_p = torch.empty((M, W), dtype=torch.int32, device=dev)
+    count = torch.empty(M, dtype=torch.int32, device=dev)
+    _call("slot_merge", "tt_slot_merge_packed", dev, *args, tok_p.data_ptr(), count.data_ptr())
+    return tok_p, count
+
+
+def piece_counts(n_pieces, lens, hit, words, byte_to_rank, mslot, lslot, m_count, l_count):
+    """B8's per-piece token counts and combos -> (counts [p] i32, combo [p]
+    i32); see ``compaction.piece_counts``."""
+    if _on_cpu(lens):
+        return compaction.piece_counts(n_pieces, lens, hit, words, byte_to_rank, mslot, lslot,
+                                       m_count, l_count)
+    dev = _dev(lens)
+    (p,) = lens.shape
+    (m_cap,), (l_cap,) = m_count.shape, l_count.shape
+    args = [p, _check("n_pieces", n_pieces, torch.int32, (), dev),
+            _check("lens", lens, torch.int32, (p,), dev),
+            _check("hit", hit, torch.int32, (p,), dev),
+            _check("words", words, torch.int32, (p, 4), dev),
+            _check("byte_to_rank", byte_to_rank, torch.int32, (256,), dev),
+            _check("mslot", mslot, torch.int32, (p,), dev),
+            _check("lslot", lslot, torch.int32, (p,), dev),
+            _check("m_count", m_count, torch.int32, (m_cap,), dev), m_cap,
+            _check("l_count", l_count, torch.int32, (l_cap,), dev), l_cap]
+    counts = torch.empty(p, dtype=torch.int32, device=dev)
+    combo = torch.empty(p, dtype=torch.int32, device=dev)
+    _call("slot_merge", "tt_piece_counts", dev, *args, counts.data_ptr(), combo.data_ptr())
+    return counts, combo
 
 
 def catalog2(piece_start, n_payload, rows, row_bad, p_cap: int):
@@ -580,16 +571,32 @@ def expand_tokens_rows(counts, combo, m_tok, l_tok, out_size: int, starts, K: in
 # ---------------------------------------------------------------------------
 
 
-def seq_scan(packed, rows, n_payload, n_total, *, K: int):
+def seq_scan(packed, rows, n_payload, n_total, *, K: int, hot: int = 0):
     """B9 -> (piece_start [C, K] bool, row_bad [C] bool); see
-    ``window_scan.seq_scan``."""
+    ``window_scan.seq_scan``. ``packed``'s first ``hot`` states are closed
+    under ASCII bytes (``window_scan.hot_byte_scan_table``) and are read
+    from shared memory (at most HOT_ROWS_MAX). A block's rows and hot rows
+    that do not fit in shared memory raise before any launch (v2 rows of
+    at most 272 bytes fit)."""
     if _on_cpu(rows):
-        return window_scan_mod.seq_scan(packed, rows, n_payload, n_total, K=K)
+        return window_scan_mod.seq_scan(packed, rows, n_payload, n_total, K=K, hot=hot)
     dev = _dev(rows)
     C, KL = rows.shape
     S_, NC = packed.shape
-    args = [_check("packed", packed, torch.int32, (S_, NC), dev), S_, NC,
-            _check("rows", rows, torch.uint8, (C, KL), dev), C, KL, K,
+    if not 0 <= hot <= S_:
+        raise ValueError(f"hot={hot} must be in 0..{S_}")
+    if packed.data_ptr() % 16:
+        raise ValueError("the byte scan table must be 16-byte aligned")
+    hot = min(hot, HOT_ROWS_MAX)
+    R = SEQ_ROWS_PER_BLOCK
+    lib = _LIBS.load()["byte_scan"]
+    smem, limit = lib.tt_seq_smem(hot, R, KL, K), lib.tt_byte_max_smem()
+    if smem > limit:
+        raise ValueError(f"the byte scan needs {smem} bytes of shared memory per block of {R} "
+                         f"rows of {KL} bytes, over the limit of {limit}: use a smaller "
+                         "row_capacity")
+    args = [_check("packed", packed, torch.int32, (S_, NC), dev), S_, NC, hot,
+            _check("rows", rows, torch.uint8, (C, KL), dev), C, KL, K, R,
             _check("n_payload", n_payload, torch.int32, (C,), dev),
             _check("n_total", n_total, torch.int32, (C,), dev)]
     mask = torch.empty((C, K), dtype=torch.bool, device=dev)
@@ -711,21 +718,19 @@ def hist_argmax(hist):
 # everywhere — the yardstick the chip check holds each kernel against.
 KERNEL_OPS = SimpleNamespace(
     scan_rows=scan_rows, scan_validate=scan_validate, char_scan=char_scan, catalog=catalog,
-    compact_kinds=compact_kinds, compact_rows=compact_rows, route_right=route_right,
-    expand_tokens=expand_tokens, vocab_hit=vocab_hit, long_vocab_hit=long_vocab_hit,
-    slot_merge=slot_merge,
-    catalog2=catalog2, extract_slots=extract_slots, expand_tokens_rows=expand_tokens_rows,
+    compact_kinds=compact_kinds, vocab_hit=vocab_hit, long_vocab_hit=long_vocab_hit,
+    slot_merge_packed=slot_merge_packed, piece_counts=piece_counts, catalog2=catalog2,
+    extract_slots=extract_slots, expand_tokens_rows=expand_tokens_rows,
     seq_scan=seq_scan, window_scan=window_scan, orbit=orbit, grid_merge=grid_merge,
     pair_hist=pair_hist, hist_argmax=hist_argmax,
 )
 PLAIN_OPS = SimpleNamespace(
     scan_rows=sweep_scan.scan_rows, scan_validate=sweep_scan.scan_validate,
     char_scan=sweep_scan.char_scan_rows, catalog=compaction.catalog,
-    compact_kinds=compaction.compact_kinds, compact_rows=compaction.compact_rows,
-    route_right=compaction.route_right, expand_tokens=compaction.expand_tokens,
-    vocab_hit=pieces.vocab_hit,
-    long_vocab_hit=pieces.long_vocab_hit, slot_merge=slot_merge_mod.slot_merge,
-    catalog2=compaction.catalog2, extract_slots=compaction.extract_slots,
+    compact_kinds=compaction.compact_kinds, vocab_hit=pieces.vocab_hit,
+    long_vocab_hit=pieces.long_vocab_hit, slot_merge_packed=slot_merge_mod.slot_merge_packed,
+    piece_counts=compaction.piece_counts, catalog2=compaction.catalog2,
+    extract_slots=compaction.extract_slots,
     expand_tokens_rows=compaction.expand_tokens_rows, seq_scan=window_scan_mod.seq_scan,
     window_scan=window_scan_mod.window_scan, orbit=window_scan_mod.orbit,
     grid_merge=merge.grid_merge, pair_hist=pair_count_mod.pair_hist,

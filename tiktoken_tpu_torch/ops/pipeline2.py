@@ -7,9 +7,10 @@ without ``pack24``, stage for stage:
     rows [C, KL] -- char_scan (or seq_scan) --> piece_start [C, K], row_bad
         -- catalog2 --> starts / lens / words per piece (row-major order)
         -- vocab hits --> single-token pieces
-        -- short misses: compact, slot merge (W=16), row compaction
+        -- short misses: compact, slot merge (W=16), left-packed
         -- long pieces: compact, extract, long hits, slot merge (W=64)
-        -- expand_tokens_rows --> flat token stream + per-row counts
+        -- piece_counts, expand_tokens_rows --> flat token stream + per-row
+           counts
 
     header [2C+2] i32 = [row_counts | row_bad | n_tokens | overflow]
 
@@ -30,11 +31,11 @@ v1 (``run_rows1``), the counterpart of the JAX ``build_pipeline_fn``:
 window scan, orbit, ``row_bad``, full-grid merge and row packing. It
 reads the byte-level scan table.
 
-Glue that stays PyTorch ops on the device: the slot masks (``m_real``,
-``l_real``; the kind masks are read off ``compact_kinds``' slots), the
-single_tok/combo/count selects (with the long hits' lane-0 select) and
-the header concat. The scans read the row bytes and the merge the
-payload lengths directly.
+Glue that stays PyTorch ops on the device: the short-piece lengths of the
+vocab hits and the header concat. The scans read the row bytes and the
+merge the payload lengths directly; the slot merges read the miss and
+long counts on the device and left-pack their tokens, and
+``piece_counts`` gathers each merged piece's count from its slot.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from tiktoken_tpu_torch.ops.kernels import KERNEL_OPS
-from tiktoken_tpu_torch.ops.pieces import LONG_SLOT, SLOT
+from tiktoken_tpu_torch.ops.pieces import SLOT
 from tiktoken_tpu_torch.ops.window_scan import DEFAULT_WINDOW
 
 LOOK = 16  # true continuation bytes per row
@@ -70,17 +71,13 @@ def run_chunk2(t, rows, n_payload, n_total, *, scanner: str = "char", ops=KERNEL
     K = KL - LOOK
     caps = chunk_caps2(K, C)
     p_cap, m_cap, l_cap, t_cap = caps["p_cap"], caps["m_cap"], caps["l_cap"], caps["t_cap"]
-    dev = rows.device
-
-    def ar(n):
-        return torch.arange(n, dtype=torch.int32, device=dev)
-
     # ---- B16 (char classes, char-DFA scan) or B9 (byte-DFA scan) -------------
     if scanner == "char":
         piece_start, row_bad, na_overflow = ops.char_scan(t.scan, rows, n_payload, n_total, K=K,
                                                           na_frac=NA_FRAC)
     else:
-        piece_start, row_bad = ops.seq_scan(t.byte_scan, rows, n_payload, n_total, K=K)
+        piece_start, row_bad = ops.seq_scan(t.byte_scan, rows, n_payload, n_total, K=K,
+                                             hot=t.byte_hot)
         na_overflow = False
 
     # ---- B10: catalog, words, too-long rows ----------------------------------
@@ -89,52 +86,28 @@ def run_chunk2(t, rows, n_payload, n_total, *, scanner: str = "char", ops=KERNEL
 
     # ---- whole-piece hits ------------------------------------------------------
     hit = ops.vocab_hit(t.vocab_buckets, words, torch.where(lens <= SLOT, lens, 0), t.vocab_seed)
-    miss = hit == -1  # MISS = 0xFFFFFFFF
 
     # ---- the short-miss and long compactions, one pass ---------------------------
-    (m_words, m_lens_c, m_pid), n_miss, mslot, (l_starts, l_lens_c, l_pid), n_long, lslot = \
+    (m_words, m_lens, _), n_miss, mslot, (l_starts, l_lens, _), n_long, lslot = \
         ops.compact_kinds(words, starts, lens, hit, n_pieces, m_cap, l_cap)
-    is_short_miss, is_long = mslot >= 0, lslot >= 0
 
-    # ---- short misses ------------------------------------------------------------
-    m_real = ar(m_cap) < n_miss
-    m_lens = torch.where(m_real, m_lens_c, 0)
-    m_tok, m_alive = ops.slot_merge(t.pair_buckets, t.byte_to_rank, m_words.view(torch.uint8),
-                                    m_lens, t.pair_seed)
-    m_tok_p, m_counts = ops.compact_rows(m_alive & m_real[:, None], m_tok)
+    # ---- short misses merged in their slots, left-packed ---------------------------
+    m_tok, m_count = ops.slot_merge_packed(t.pair_buckets, t.byte_to_rank,
+                                           m_words.view(torch.uint8), m_lens, t.pair_seed, n_miss)
 
     # ---- long pieces ---------------------------------------------------------------
-    l_real = ar(l_cap) < n_long
-    l_lens = torch.where(l_real, l_lens_c, 0)
     l_bytes = ops.extract_slots(rows, l_starts, l_lens, K)
     # whole-piece hits of 17..64-byte tokens skip the merge (reference
     # vocab-as-cache semantics, src/lib.rs:367-369)
     l_hit = ops.long_vocab_hit(t.long_buckets, l_bytes, l_lens, t.long_seed)
-    l_is_hit = l_hit != -1
-    l_tok, l_alive = ops.slot_merge(
-        t.pair_buckets, t.byte_to_rank, l_bytes, torch.where(l_is_hit, 0, l_lens), t.pair_seed,
-    )
-    lane0 = (ar(LONG_SLOT) == 0)[None, :] & l_is_hit[:, None]
-    l_tok = torch.where(lane0, l_hit[:, None], l_tok)
-    l_tok_p, l_counts = ops.compact_rows((l_alive | lane0) & l_real[:, None], l_tok)
+    l_tok, l_count = ops.slot_merge_packed(t.pair_buckets, t.byte_to_rank, l_bytes, l_lens,
+                                           t.pair_seed, n_long, hit=l_hit)
 
     # ---- assembly: per-piece counts, the token stream, per-row counts --------------
-    first_byte = (words[:, 0] & 0xFF).to(torch.int64)
-    single_tok = torch.where(lens == 1, t.byte_to_rank[first_byte], hit)
-    is_single = (lens == 1) | ((lens >= 2) & (lens <= SLOT) & ~miss)
-    counts_m = ops.route_right(torch.where(m_real, m_pid, -1), m_counts, p_cap)
-    counts_l = ops.route_right(torch.where(l_real, l_pid, -1), l_counts, p_cap)
-    counts = torch.where(is_single, 1, torch.where(
-        is_short_miss, counts_m, torch.where(is_long, counts_l, 0))).to(torch.int32)
-    # unified token base: short-miss slot s -> s*16, long slot s -> m_cap*16
-    # + s*64; a single piece carries its id in-band, flagged by bit 31
-    base = torch.where(
-        is_short_miss, mslot.clamp(0, m_cap - 1) * SLOT,
-        torch.where(is_long, m_cap * SLOT + lslot.clamp(0, l_cap - 1) * LONG_SLOT, 0),
-    )
-    combo = torch.where(is_single, single_tok | -0x80000000, base).to(torch.int32)
-    flat_tok, n_tokens, row_counts = ops.expand_tokens_rows(counts, combo, m_tok_p, l_tok_p,
-                                                            t_cap, starts, K, C)
+    counts, combo = ops.piece_counts(n_pieces, lens, hit, words, t.byte_to_rank, mslot, lslot,
+                                     m_count, l_count)
+    flat_tok, n_tokens, row_counts = ops.expand_tokens_rows(counts, combo, m_tok, l_tok, t_cap,
+                                                            starts, K, C)
 
     overflow = ((n_pieces > p_cap - 1) | (n_miss > m_cap) | (n_long > l_cap)
                 | (n_tokens > t_cap - 1) | na_overflow)

@@ -208,9 +208,11 @@ class ChunkTables:
     vocab_seed: int
     long_buckets: torch.Tensor  # [nb, 128] i32
     long_seed: int
-    # [S, 257] i32 byte-indexed scan table of the v2/v1 programs
-    # (window_scan.byte_scan_table); built at the first v2 call
+    # [S, 257] i32 byte-indexed scan table of the v2/v1 programs, its first
+    # byte_hot states closed under ASCII bytes
+    # (window_scan.hot_byte_scan_table); built at the first call that needs it
     byte_scan: torch.Tensor | None = None
+    byte_hot: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -262,20 +264,14 @@ def run_chunk(t: ChunkTables, flat, row_off, n_payload, n_total, is_doc_end,
     operations: the kernels (``KERNEL_OPS``) or their plain versions
     (``PLAIN_OPS``, the chip check's yardstick).
 
-    Glue that stays as PyTorch ops on the device: the live mask,
-    ``extract_long`` (a gather over the few long pieces), the
-    single_tok/combo selects (with the long hits' lane-0 select), the
-    per-row ``searchsorted`` and the header concat.
+    Glue that stays as PyTorch ops on the device: ``extract_long`` (a
+    gather over the few long pieces), the short-piece lengths of the vocab
+    hits and the header concat.
     """
     C = row_off.shape[0]
     KP, KL = row_geometry(K)
     caps = chunk_caps(K, C, worst_case)
     p_cap, m_cap, l_cap, t_cap = caps["p_cap"], caps["m_cap"], caps["l_cap"], caps["t_cap"]
-    dev = flat.device
-
-    def ar(n):
-        return torch.arange(n, dtype=torch.int32, device=dev)
-
     # ---- B1-B4: rows, classes, scan, handshake validation -------------------
     rows, mask, spec_f, row_bad, na_overflow = ops.scan_rows(
         t.scan, flat, row_off, n_payload, n_total, is_doc_end,
@@ -285,70 +281,36 @@ def run_chunk(t: ChunkTables, flat, row_off, n_payload, n_total, is_doc_end,
 
     # ---- B5: catalog: starts, lengths, padded words, too-long row flags ------
     starts, words, lens, row_bad, n_pieces = ops.catalog(rows, mask3, spec_f, row_bad, p_cap)
-    live = ar(p_cap) < n_pieces
 
     # ---- B6: whole-piece hits -------------------------------------------------
     hit = ops.vocab_hit(t.vocab_buckets, words, torch.where(lens <= SLOT, lens, 0), t.vocab_seed)
-    miss = hit == -1  # MISS = 0xFFFFFFFF
 
     # ---- B7/B8: the short-miss and long compactions, one pass ---------------
-    (m_words, m_lens_c, m_pid), n_miss, mslot, (l_starts, l_lens_c, l_pid), n_long, lslot = \
+    (m_words, m_lens, _), n_miss, mslot, (l_starts, l_lens, _), n_long, lslot = \
         ops.compact_kinds(words, starts, lens, hit, n_pieces, m_cap, l_cap)
-    is_short_miss, is_long = mslot >= 0, lslot >= 0
 
-    # ---- B7: short misses -----------------------------------------------------
-    m_real = ar(m_cap) < n_miss
-    m_bytes = m_words.view(torch.uint8)  # [m_cap, 16]
-    m_lens = torch.where(m_real, m_lens_c, 0)
-    m_tok, m_alive = ops.slot_merge(t.pair_buckets, t.byte_to_rank, m_bytes, m_lens, t.pair_seed)
-    m_tok_p, m_counts = ops.compact_rows(m_alive & m_real[:, None], m_tok)
+    # ---- B7: the short misses merged in their slots, left-packed ------------
+    m_tok, m_count = ops.slot_merge_packed(t.pair_buckets, t.byte_to_rank,
+                                           m_words.view(torch.uint8), m_lens, t.pair_seed, n_miss)
 
     # ---- B8: long pieces ------------------------------------------------------
-    l_real = ar(l_cap) < n_long
-    l_lens = torch.where(l_real, l_lens_c, 0)
     l_bytes = extract_long(rows, l_starts, l_lens)
     # whole-piece hits for 17..64-byte tokens skip the merge (reference
     # vocab-as-cache semantics, src/lib.rs:367-369)
     l_hit = ops.long_vocab_hit(t.long_buckets, l_bytes, l_lens, t.long_seed)
-    l_is_hit = l_hit != -1
-    l_tok, l_alive = ops.slot_merge(
-        t.pair_buckets, t.byte_to_rank, l_bytes, torch.where(l_is_hit, 0, l_lens), t.pair_seed,
-    )
-    lane0 = (ar(LONG_SLOT) == 0)[None, :] & l_is_hit[:, None]
-    l_tok = torch.where(lane0, l_hit[:, None], l_tok)
-    l_tok_p, l_counts = ops.compact_rows((l_alive | lane0) & l_real[:, None], l_tok)
+    l_tok, l_count = ops.slot_merge_packed(t.pair_buckets, t.byte_to_rank, l_bytes, l_lens,
+                                           t.pair_seed, n_long, hit=l_hit)
 
-    # ---- B8: per-piece counts and expansion into the token stream ------------
-    first_byte = (words[:, 0] & 0xFF).to(torch.int64)
-    single_tok = torch.where(lens == 1, t.byte_to_rank[first_byte], hit)
-    is_single = live & ((lens == 1) | ((lens >= 2) & (lens <= SLOT) & ~miss))
-    counts_m = ops.route_right(torch.where(m_real, m_pid, -1), m_counts, p_cap)
-    counts_l = ops.route_right(torch.where(l_real, l_pid, -1), l_counts, p_cap)
-    counts = torch.where(is_single, 1, torch.where(
-        is_short_miss, counts_m, torch.where(is_long, counts_l, 0))).to(torch.int32)
-    # unified token base: short-miss slot s -> s*16, long slot s -> m_cap*16
-    # + s*64; a single piece carries its id in-band, flagged by bit 31
-    base = torch.where(
-        is_short_miss, mslot.clamp(0, m_cap - 1) * SLOT,
-        torch.where(is_long, m_cap * SLOT + lslot.clamp(0, l_cap - 1) * LONG_SLOT, 0),
-    )
-    combo = torch.where(is_single, single_tok | -0x80000000, base).to(torch.int32)
-    flat_tok, n_tokens = ops.expand_tokens(counts, combo, m_tok_p, l_tok_p, t_cap)
-
-    # ---- per-row token counts: the catalog is row-ordered, so two binary
-    # searches per row on the counts prefix sum
-    pos_sorted = torch.where(live, starts // KL, C).to(torch.int64)
-    cs = torch.cat([counts.new_zeros(1, dtype=torch.int64),
-                    torch.cumsum(torch.where(live, counts, 0), 0, dtype=torch.int64)])
-    rows_r = torch.arange(C, dtype=torch.int64, device=dev)
-    lo_i = torch.searchsorted(pos_sorted, rows_r, right=False)
-    hi_i = torch.searchsorted(pos_sorted, rows_r, right=True)
-    row_counts = cs[hi_i] - cs[lo_i]
+    # ---- B8: per-piece counts, the token stream and each row's count --------
+    counts, combo = ops.piece_counts(n_pieces, lens, hit, words, t.byte_to_rank, mslot, lslot,
+                                     m_count, l_count)
+    flat_tok, n_tokens, row_counts = ops.expand_tokens_rows(counts, combo, m_tok, l_tok, t_cap,
+                                                            starts, KL, C)
 
     overflow = ((n_pieces > p_cap) | (n_miss > m_cap) | (n_long > l_cap)
                 | (n_tokens > t_cap) | na_overflow)
     header = torch.cat([
-        row_counts.to(torch.int32), row_bad.to(torch.int32),
+        row_counts, row_bad.to(torch.int32),
         torch.stack([n_pieces, n_miss, n_long, n_tokens, overflow.to(torch.int32)]).to(torch.int32),
     ])
     return flat_tok, header

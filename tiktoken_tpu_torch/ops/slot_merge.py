@@ -6,13 +6,18 @@ Greedy BPE repeatedly merges the leftmost minimum-rank adjacent pair
 tie-break, reference: src/lib.rs:148-153) until no adjacent pair is in
 the pair table. The merged token id is the pair's rank.
 
-Output contract (the JAX ``make_slot_merge_fn``'s): ``(tokens [M, W],
-alive [M, W])``, each surviving token at the lane of its first byte.
-Tokens at dead lanes are unspecified in JAX; the port writes 0 there.
+``slot_merge`` keeps the output contract of the JAX
+``make_slot_merge_fn``: ``(tokens [M, W], alive [M, W])``, each surviving
+token at the lane of its first byte. Tokens at dead lanes are unspecified
+in JAX; the port writes 0 there. It runs the JAX kernel's lockstep rounds
+(W-1 pair lookups up front, then 2 per merge).
 
-The plain PyTorch version below runs the JAX kernel's lockstep rounds
-(W-1 pair lookups up front, then 2 per merge); the CUDA kernel
-(csrc/slot_merge.cu) walks each piece serially in one thread.
+The chunk programs take ``slot_merge_packed``: the same merge over the
+slots below a device count ``n_real``, each slot's surviving tokens
+left-packed in order with their count (``slot_merge`` then the row-wise
+``compact_rows``), and, for the long slots, a whole-piece hit taking the
+place of the merge. It is the plain version of the CUDA kernel
+(csrc/slot_merge.cu), which merges each piece in a group of lanes.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tiktoken_tpu_torch.ops.compaction import compact_rows
 from tiktoken_tpu_torch.ops.pair_table import (
     BUCKET_SLOTS,
     M32,
@@ -130,3 +136,30 @@ def slot_merge(buckets: torch.Tensor, byte_to_rank: torch.Tensor,
         r = _put(r, l, r_l, act & has_l)
     tok = torch.where(alive, tok, 0)
     return tok.to(torch.int32), alive
+
+
+def slot_merge_packed(buckets: torch.Tensor, byte_to_rank: torch.Tensor,
+                      slot_bytes: torch.Tensor, lens: torch.Tensor, seed: int,
+                      n_real: torch.Tensor, hit: torch.Tensor | None = None):
+    """(buckets [nb, 32] i32, byte_to_rank [256] i32, slot_bytes [M, W] u8,
+    lens [M] i32, n_real i32 scalar, hit [M] i32 or None) -> (tok_p [M,
+    W] i32, count [M] i32).
+
+    Slot m below ``n_real`` holds the ``count[m]`` tokens that survive its
+    greedy merge, left-packed in order (``slot_merge`` then
+    ``compact_rows``); where ``hit`` is given and ``hit[m] != -1`` (a
+    whole-piece hit of a long slot), its one token is ``hit[m]``. The
+    entries past a slot's count and the slots at or past ``n_real`` are
+    unspecified: the kernel leaves them untouched, this version writes 0."""
+    M, W = slot_bytes.shape
+    real = torch.arange(M, device=lens.device) < n_real
+    L = torch.where(real, lens, 0)
+    if hit is not None:
+        is_hit = real & (hit != -1)
+        L = torch.where(is_hit, 0, L)
+    tok, alive = slot_merge(buckets, byte_to_rank, slot_bytes, L, seed)
+    if hit is not None:
+        lane0 = (torch.arange(W, device=lens.device) == 0)[None, :] & is_hit[:, None]
+        tok = torch.where(lane0, hit[:, None], tok)
+        alive = alive | lane0
+    return compact_rows(alive, tok)

@@ -17,7 +17,10 @@ contract (reference: src/lib.rs:363-365 find_iter semantics; host spec
 
 Tables: ``pack_trans_accept`` fuses the next state and its accept rewind
 into one int32 per (state, class); ``expand_packed_to_bytes`` indexes it
-by byte (column 256 = EOF), so the class lookup disappears. Both the v2
+by byte (column 256 = EOF), so the class lookup disappears;
+``hot_byte_scan_table`` renumbers its states so that those an ASCII scan
+visits come first (the kernels keep their rows in shared memory). The
+scans' outputs do not depend on the numbering. Both the v2
 and the v1 program of the port scan that byte-indexed table straight from
 the row bytes, the class being the byte or 256 (EOF) at and past
 ``n_total`` and past the row (the v1 JAX program uses the class-indexed
@@ -63,8 +66,33 @@ def expand_packed_to_bytes(packed: np.ndarray, class_of: np.ndarray) -> np.ndarr
 
 
 def byte_scan_table(dfa: ScannerDFA) -> np.ndarray:
-    """The [S, 257] int32 table both scanners of the port read."""
+    """The [S, 257] int32 byte-indexed table of ``dfa``."""
     return expand_packed_to_bytes(pack_trans_accept(dfa.trans, dfa.accept), dfa.class_of)
+
+
+def hot_byte_scan_table(dfa: ScannerDFA) -> tuple[np.ndarray, int]:
+    """The table both scanners of the port read: ``byte_scan_table`` with
+    its states renumbered so that DEAD (0), START (1) and every state
+    reachable from START on ASCII bytes come first, in breadth-first order.
+    -> (table [S, 257] int32, H): the first H states are closed under the
+    bytes 0..127, so a scan of ASCII text reads only their rows."""
+    table = byte_scan_table(dfa).astype(np.int64)
+    nxt = table >> ACC_BITS
+    order, seen = [DEAD, START], {DEAD, START}
+    i = 1
+    while i < len(order):
+        for s2 in np.unique(nxt[order[i], :128]).tolist():
+            if s2 not in seen:
+                seen.add(s2)
+                order.append(s2)
+        i += 1
+    H = len(order)
+    order += [s for s in range(table.shape[0]) if s not in seen]
+    new_of = np.empty(table.shape[0], np.int64)
+    new_of[order] = np.arange(table.shape[0])
+    rows = table[order]
+    out = (new_of[rows >> ACC_BITS] << ACC_BITS) | (rows & ((1 << ACC_BITS) - 1))
+    return np.ascontiguousarray(out.astype(np.int32)), H
 
 
 # ---------------------------------------------------------------------------
@@ -176,17 +204,27 @@ def byte_class_grid(rows: torch.Tensor, n_total: torch.Tensor, width: int) -> to
 
 
 def seq_scan(packed: torch.Tensor, rows: torch.Tensor, n_payload: torch.Tensor,
-             n_total: torch.Tensor, *, K: int):
+             n_total: torch.Tensor, *, K: int, hot: int = 0):
     """B9. (packed [S, 257] i32, rows [C, KL] u8, n_payload, n_total [C]
     i32) -> (piece_start [C, K] bool, row_bad [C] bool). The scanned
     classes are ``byte_class_grid(rows, n_total, KL + 1)``: the JAX
     kernel's classes_ext, EOF at and past n_total and in column KL.
+    ``hot``, the kernel's count of shared-memory states, changes nothing
+    here.
 
     Rows step in lockstep, one byte (or one restart) per step: a death
     resolves the match at its last accept end; a start is marked where it
     lies below n_payload; a match that makes no progress marks its row
     bad unless the row is finished; a row still unfinished after
     3*(KL+2) steps is bad."""
+    mask, bad, _ = seq_walk(packed, rows, n_payload, n_total, K=K)
+    return mask, bad
+
+
+def seq_walk(packed: torch.Tensor, rows: torch.Tensor, n_payload: torch.Tensor,
+             n_total: torch.Tensor, *, K: int):
+    """``seq_scan`` with each row's walk steps: (piece_start, row_bad,
+    steps [C] i32), a step being one byte or one restart."""
     C, KL = rows.shape
     classes_ext = byte_class_grid(rows, n_total, KL + 1)
     nc = packed.shape[1]
@@ -201,9 +239,11 @@ def seq_scan(packed: torch.Tensor, rows: torch.Tensor, n_payload: torch.Tensor,
     mask = torch.zeros((C, K), dtype=torch.bool, device=dev)
     bad = torch.zeros(C, dtype=torch.bool, device=dev)
     done = n_payload <= 0
+    steps = torch.zeros(C, dtype=i32, device=dev)
     rows_i = torch.arange(C, device=dev)
     it = 0
     while it < 3 * (KL + 2) and not bool(done.all()):
+        steps += (~done).to(i32)
         cls = classes_ext.gather(1, p.clamp(max=KL).to(torch.int64)[:, None])[:, 0]
         v = flat_t[(s.to(torch.int64) * nc + cls)]
         s2 = v >> ACC_BITS
@@ -226,7 +266,7 @@ def seq_scan(packed: torch.Tensor, rows: torch.Tensor, n_payload: torch.Tensor,
         mstart = new_start
         done = done2
         it += 1
-    return mask, bad | ~done
+    return mask, bad | ~done, steps
 
 
 def window_scan(packed: torch.Tensor, rows: torch.Tensor, n_total: torch.Tensor, *, K: int,

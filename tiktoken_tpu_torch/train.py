@@ -6,8 +6,8 @@ tiktoken/_educational.py:119-185): count adjacent token pairs over the
 pre-tokenized corpus and merge the most common pair, repeatedly, with a
 piece histogram and incremental pair-count upkeep so that large
 vocabularies train at practical speed. Pre-tokenization uses the port's
-own splitter (``_pybpe.HostBPE.split``, a char-level DFA of the pattern),
-so it needs neither ``regex`` nor the reference library.
+own splitter (``_pybpe.HostBPE.split``: a char-level DFA of the pattern,
+or the ``regex`` module for a pattern outside the DFA's dialect).
 
 Vocabularies produced here satisfy the invariants the whole framework
 relies on (reference: src/lib.rs:145-147):
