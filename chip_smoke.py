@@ -31,8 +31,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    scan study as phase 4, for ``tt_char_scan`` and for ``tt_seq_scan``
    (its rows per block, and its time with no hot rows in shared memory);
    the edge documents' chunk, over the cap, entry
-   point by entry point; a row too long for the scan's shared memory is
-   refused before launch;
+   point by entry point, and through the v1 program (pieces of the whole
+   row); ``tt_grid_merge`` against plain on a chunk of pieces at each of
+   its length-class boundaries (1 to 256 bytes) with rows of no payload,
+   and its time beside its probe floor (as many reads as the chunk makes
+   probes, one 16-byte load each, at hashed random rows of the pair table:
+   ``scripts/floor_kernels.cu``); a row too long for the scan's shared
+   memory is refused before launch;
 5. the v3 main path: ``Encoding.encode_corpus_to_numpy`` over the corpus
    on ``cuda``, with every kernel's launch count read around it;
 5b. the v2 main path: the same call with ``pipeline=2`` (the char
@@ -56,7 +61,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``corpus_pair_counts`` over every GPU, a 2-way split and a one-rank
    NCCL group agree; the upload, the read-back and the whole call are
    timed on the host clock; both ``pair_count`` entry points equal their
-   plain version on the same tensors, timed with CUDA events.
+   plain version on the same tensors, timed with CUDA events, and
+   ``tt_pair_hist`` on a hot-bin grid (one repeated pair, dead stretches
+   across tiles) at 2^12, 2^20 and 2^26 bins; its atomic floor (one
+   ``atomicAdd`` a pair on the feed's precomputed bins:
+   ``scripts/floor_kernels.cu``, held against the histogram).
 
 Each main-path call (phases 5, 5b, 7 and 8) sets the launch counts to 0
 just before it and reads them just after, and fails if a kernel of its
@@ -72,9 +81,11 @@ without a result when CUDA is not available or the package is missing.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
@@ -502,11 +513,6 @@ def library_call(name, args, out):
                     [torch.index_select(x, 0, l_) for x in (starts, lens)])
 
         return kinds, True
-    if name == "piece_counts":
-        # the core of the entry: each merged piece's count gathered from its slot
-        mslot, m_count = args[5], args[7]
-        idx = mslot.clamp(0, m_count.shape[0] - 1).to(torch.int64)
-        return (lambda: torch.take(m_count, idx)), False
     if name == "catalog2":
         m = args[0].reshape(-1)
         flat_idx = torch.arange(m.numel(), dtype=torch.int32, device=m.device)
@@ -771,6 +777,143 @@ def na_rows(rows: torch.Tensor, n_total: torch.Tensor, cap: int) -> int:
     return int((na.sum(dim=1) > cap).sum())
 
 
+def piece_lengths(piece_start: torch.Tensor, n_payload: torch.Tensor) -> torch.Tensor:
+    """The byte length of every piece of the grid_merge rows (a piece starts
+    at column 0 or at a piece start below the row's payload end)."""
+    C, K = piece_start.shape
+    valid = torch.arange(K, device=piece_start.device)[None, :] < n_payload[:, None]
+    heads = valid & piece_start
+    heads[:, 0] |= valid[:, 0]
+    pid = torch.cumsum(heads.reshape(-1).to(torch.int64), 0) - 1
+    v = valid.reshape(-1)
+    n = int(heads.sum())
+    return torch.zeros(n, dtype=torch.int64, device=pid.device).scatter_add_(
+        0, pid[v], torch.ones_like(pid[v]))
+
+
+BOUNDARY_LENGTHS = (1, 2, 8, 16, 17, 63, 64, 65, 255, 256)
+
+
+def boundary_chunk(tb, device, C: int = 2048) -> None:
+    """``tt_grid_merge`` against ``merge.grid_merge`` (exact) on a chunk of
+    K=256 rows cut into pieces of each length-class boundary of the
+    kernel (BOUNDARY_LENGTHS, one length a row, the row's last piece
+    shorter), of bench-corpus text and of runs of one letter, and rows of
+    no payload."""
+    from tiktoken_tpu_torch.ops import kernels, merge
+
+    K, KL = 256, 272
+    text = np.frombuffer(make_bench_corpus(C * KL, seed=3).encode()[: C * KL], np.uint8)
+    rows = text.reshape(C, KL).copy()
+    piece_start = np.zeros((C, K), bool)
+    n_payload = np.full(C, K, np.int32)
+    for r in range(C):
+        L = BOUNDARY_LENGTHS[r % len(BOUNDARY_LENGTHS)]
+        piece_start[r, ::L] = True
+        if r % 3 == 1:
+            rows[r] = ord("x") if r % 2 else ord("a") + r % 26
+        if r % 13 == 12:
+            n_payload[r] = 0
+        elif r % 11 == 10:
+            n_payload[r] = r % K
+    r, ps, pay = (torch.from_numpy(x).to(device) for x in (rows, piece_start, n_payload))
+    args = (tb.pair_buckets, tb.byte_to_rank, r, ps, pay, tb.pair_seed)
+    got = kernels.grid_merge(*args)
+    want = merge.grid_merge(*args)
+    for a, b, what in zip(got, want, ("packed", "counts", "rounds")):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"tt_grid_merge differs from plain on the length-boundary chunk "
+                               f"({what})")
+    lens = piece_lengths(ps, pay)
+    have = sorted(set(int(x) for x in torch.unique(lens)) & set(BOUNDARY_LENGTHS))
+    if have != list(BOUNDARY_LENGTHS):
+        raise RuntimeError(f"the length-boundary chunk has pieces of {have} bytes only")
+    log(f"length-boundary chunk ({C} rows, pieces of {list(BOUNDARY_LENGTHS)} bytes, "
+        f"{int((pay == 0).sum())} rows of no payload): tt_grid_merge == plain (rounds "
+        f"{int(got[2])}, tokens {int(got[1].sum())})")
+
+
+FLOOR_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "floor_kernels.cu")
+FLOOR_SO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiktoken_tpu_torch", "build",
+                        "floors", "floor_kernels.so")
+_floor_lib: list = []
+
+
+def start_floor_build() -> subprocess.Popen:
+    """Starts ``nvcc`` on the floor kernels (``scripts/floor_kernels.cu``)
+    into ``tiktoken_tpu_torch/build/floors/``; ``floor_lib`` waits for it."""
+    from tiktoken_tpu_torch.ops.kernels import NVCC_FLAGS
+
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    os.makedirs(os.path.dirname(FLOOR_SO), exist_ok=True)
+    return subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", FLOOR_SO, FLOOR_SRC],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def floor_lib(proc: subprocess.Popen | None = None) -> ctypes.CDLL:
+    """The floor kernels, loaded once: from the build ``proc`` that
+    ``start_floor_build`` started, or built now. Yardsticks; the port never
+    calls them."""
+    if not _floor_lib:
+        proc = proc or start_floor_build()
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on scripts/floor_kernels.cu:\n{out}")
+        lib = ctypes.CDLL(FLOOR_SO)
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.probe_floor.argtypes = [P, I, LL, I, P, P]
+        lib.atomics_only.argtypes = [P, LL, P, P]
+        lib.probe_floor.restype = lib.atomics_only.restype = ctypes.c_int
+        _floor_lib.append(lib)
+    return _floor_lib[0]
+
+
+def probe_floor_ms(buckets: torch.Tensor, probes: int, loads: int = 1,
+                   rows: int | None = None) -> float:
+    """The time of ``probes`` independent reads of a bucket row's first
+    32-byte sector at random rows of the pair table, hashed from each
+    read's index (no index array): one 16-byte load a read, or two; over
+    the table's first ``rows`` rows (a power of two) where given. The
+    floor of ``tt_grid_merge``'s probes."""
+    if buckets.shape[1] * buckets.element_size() != 128:
+        raise ValueError("probe_floor_ms: bucket rows of 128 bytes expected")
+    lib = floor_lib()
+    sink = torch.zeros(1, dtype=torch.int32, device=buckets.device)
+    stream = torch.cuda.current_stream(buckets.device).cuda_stream
+
+    def run():
+        err = lib.probe_floor(buckets.data_ptr(), rows or buckets.shape[0], probes, loads,
+                              sink.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"probe_floor: CUDA error {err}")
+
+    return gpu_ms(run)
+
+
+def atomic_floor_ms(bins: torch.Tensor, bits: int, want: torch.Tensor | None = None) -> float:
+    """The time of one ``atomicAdd`` a bin into a 2^bits-bin int32 table,
+    the bins precomputed (read as int4, padded with bin 0): the floor of
+    ``tt_pair_hist``'s adds. Where ``want`` (the histogram of these bins)
+    is given, the adds are first held against it."""
+    lib = floor_lib()
+    n = bins.numel()
+    b32 = torch.cat([bins.to(torch.int32), bins.new_zeros((-n) % 4, dtype=torch.int32)])
+    hist = torch.zeros(1 << bits, dtype=torch.int32, device=bins.device)
+    stream = torch.cuda.current_stream(bins.device).cuda_stream
+
+    def run():
+        err = lib.atomics_only(b32.data_ptr(), b32.numel() // 4, hist.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"atomics_only: CUDA error {err}")
+
+    if want is not None:
+        run()
+        hist[0] -= b32.numel() - n
+        if not torch.equal(hist, want):
+            raise RuntimeError("the atomic floor's adds differ from the histogram")
+    return gpu_ms(run)
+
+
 def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
     """Phase 4b: one real v2 chunk (C rows of K=256) through run_chunk2
     under the char scanner and the byte scanner (the byte-level scan table
@@ -886,6 +1029,16 @@ def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
     for a, b, what in zip(out_k, out_p, ("packed", "counts", "rounds", "row_bad")):
         if not torch.equal(a, b):
             raise RuntimeError(f"v1 program: kernels and plain versions disagree on {what}")
+    # the v1 program on the edge documents' chunk: pieces of the whole row
+    calls_e1: list = []
+    run_rows1(tb, er, ep, et, ops=recording_ops(kernels.KERNEL_OPS, calls_e1))
+    check_calls(calls_e1, "v1 edge chunk")
+    longest = piece_lengths(*[calls_e1[-1][1][i] for i in (3, 4)]).max()
+    if longest <= 64:
+        raise RuntimeError(f"the v1 edge chunk's longest piece has {longest} bytes, want > 64")
+    log(f"v1 edge chunk: every entry point equal to plain (longest piece {longest} bytes, "
+        f"rounds {int(calls_e1[-1][3][2])})")
+    boundary_chunk(tb, rows.device)
     chunk2_ms = gpu_ms(lambda: run_chunk2(t, rows, pay, tot), reps=5)
     chunk2b_ms = gpu_ms(lambda: run_chunk2(tb, rows, pay, tot, scanner="byte"), reps=5)
     rows1_ms = gpu_ms(lambda: run_rows1(tb, rows, pay, tot), reps=3)
@@ -916,8 +1069,10 @@ def main() -> int:
     # ---- 1: card and kernel build ------------------------------------------
     card = card_line()
     log(f"card: {card}")
+    floor_build = start_floor_build()
     libs = kernels.build()
-    log(f"kernels built in {libs.build_seconds:.1f} s")
+    floor_lib(floor_build)
+    log(f"kernels built in {libs.build_seconds:.1f} s (and the floor kernels)")
     for name, report in sorted(libs.ptxas.items()):
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -959,6 +1114,13 @@ def main() -> int:
     measure(calls2, per, "v2")
     measure(calls2b, per, "v2_byte")
     measure(calls1, per, "v1")
+    (_, gm_args, gm_kwargs, gm_out), = [c for c in calls1 if c[0] == "grid_merge"]
+    gm_probes = work_of("grid_merge", gm_args, gm_kwargs, gm_out)[1] // 8
+    per["grid_merge"]["probe_floor_ms"] = probe_floor_ms(gm_args[0], gm_probes)
+    log(f"tt_grid_merge: {gm_probes} probes; {per['grid_merge']['ms']:.4f} ms against its bound "
+        f"{per['grid_merge']['bound_ms']:.5f} ms and its probe floor (as many reads, one 16-byte "
+        f"load each, at hashed random rows of the {gm_args[0].nbytes / 2**20:.0f} MiB pair "
+        f"table) {per['grid_merge']['probe_floor_ms']:.4f} ms")
     phase_s["4b"] = time.perf_counter() - t0
 
     # ---- 5: the v3 main path --------------------------------------------------
@@ -1049,8 +1211,12 @@ def main() -> int:
 
     # ---- 8: the training step ------------------------------------------------
     t0 = time.perf_counter()
-    calls_t = train_phase(tokens, offsets, launches)
+    calls_t, per["pair_count"]["atomic_floor_ms"] = train_phase(tokens, offsets, launches)
     measure(calls_t, per, "train")
+    log(f"tt_pair_hist: {per['pair_count']['entries'][0]['ms']:.4f} ms against its bound "
+        f"{per['pair_count']['entries'][0]['bound_ms']:.5f} ms and its atomic floor (one "
+        f"atomicAdd a pair on the feed's precomputed bins) "
+        f"{per['pair_count']['atomic_floor_ms']:.4f} ms")
     for k, e in per.items():
         if not e["entries"]:
             raise RuntimeError(f"kernel {k} was not held against its plain version")
@@ -1071,6 +1237,7 @@ def main() -> int:
             library_ms=e["library_ms"],
             **({"scan_study": {"v3": study3, "v2": study2}} if k == "scan_rows" else {}),
             **({"scan_study": {"v2_byte": study_b}} if k == "byte_scan" else {}),
+            **{f: e[f] for f in ("probe_floor_ms", "atomic_floor_ms") if f in e},
             by_program={prog: dict(
                 ms=sum(x["ms"] for x in e["entries"] if x["program"] == prog),
                 plain_ms=sum(x["plain_ms"] for x in e["entries"] if x["program"] == prog),
@@ -1192,6 +1359,7 @@ def train_phase(tokens, offsets, launches: dict) -> list:
 
     from tiktoken_tpu_torch.ops import kernels
     from tiktoken_tpu_torch.ops.engine import to_device
+    from tiktoken_tpu_torch.ops.pair_count import pair_bins
     from tiktoken_tpu_torch.parallel import HIST_BITS, corpus_pair_counts, data_mesh
 
     lens = np.diff(offsets)
@@ -1236,7 +1404,40 @@ def train_phase(tokens, offsets, launches: dict) -> list:
         f"{upload_ms:.2f} ms, histogram read-back {readback_ms:.3f} ms, whole call over "
         f"{len(mesh)} GPU(s) {whole_ms:.2f} ms; the kernels' device ms follow ('train')")
     best = kernels.hist_argmax(h)
-    return [("pair_hist", (*dev_in, HIST_BITS), {}, h), ("hist_argmax", (h,), {}, best)]
+    hot_bin_grid(mesh[0])
+    atomic_ms = atomic_floor_ms(pair_bins(*dev_in, HIST_BITS), HIST_BITS, h)
+    return [("pair_hist", (*dev_in, HIST_BITS), {}, h), ("hist_argmax", (h,), {}, best)], atomic_ms
+
+
+def hot_bin_grid(device) -> None:
+    """``tt_pair_hist`` against ``pair_count.pair_hist`` (exact) at 2^12,
+    2^20 and 2^26 bins on rows across several 2048-position tiles: one row
+    of a single repeated pair, rows alive only at a few columns whose dead
+    stretches cross tile boundaries (and a dead row between alive ones),
+    and random rows."""
+    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops.pair_count import pair_hist
+
+    rng = np.random.default_rng(11)
+    B, K = 8, 3 * 4096 + 101
+    tokens = rng.integers(0, 100_000, (B, K)).astype(np.int32)
+    alive = np.ones((B, K), bool)
+    piece_start = rng.random((B, K)) < 0.1
+    piece_start[:, 0] = True
+    tokens[0] = 7  # one pair, (7, 7), in every column
+    piece_start[0, 1:] = False
+    alive[1] = False
+    alive[1, [5, 4100, 9000, K - 1]] = True
+    alive[2] = np.arange(K) % 5000 == 17
+    alive[3] = False
+    grid = [torch.from_numpy(x).to(device) for x in (tokens, alive, piece_start)]
+    for bits in (12, 20, 26):
+        got, want = kernels.pair_hist(*grid, bits), pair_hist(*grid, bits)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"tt_pair_hist differs from plain on the hot-bin grid at 2^{bits} "
+                               "bins")
+    log(f"hot-bin grid ({B} x {K}, {int(want.sum())} pairs): tt_pair_hist == plain at 2^12, 2^20 "
+        "and 2^26 bins")
 
 
 if __name__ == "__main__":

@@ -7,10 +7,13 @@ Imports ``tiktoken_tpu_torch`` from ROOT (default: this repository), builds
 its kernels there, and times with CUDA events (``chip_smoke.gpu_ms``) the
 kernel-phase chunks of ``chip_smoke.py``: one v3 chunk (C=32768, K=176) and
 one v2 chunk (C=32768, K=256) under the char and the byte scanner, and the
-v1 program on the same rows. Prints one JSON line {"root", "card", "v3",
-"v2", "v2_byte", "v1"} in ms. Run a parent tree unpacked under ``build/``
-and this one in turns inside one call (parent, change, change, parent) to
-compare them on one card.
+v1 program on the same rows; and ``tt_grid_merge`` on the first 128 of
+those rows (the chunk size of the sharded v2's overflow re-runs), by CUDA
+events and on the host clock (the mean of 200 calls made back to back,
+enqueue included). Prints one JSON line {"root", "card", "v3", "v2",
+"v2_byte", "v1", "grid_merge_128", "grid_merge_128_host"} in ms. Run a
+parent tree unpacked under ``build/`` and this one in turns inside one call
+(parent, change, change, parent) to compare them on one card.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import time
 
 import torch
 
@@ -33,7 +37,7 @@ def main() -> int:
         return 1
     import chip_smoke
     import tiktoken_tpu_torch
-    from tiktoken_tpu_torch.ops import pipeline3
+    from tiktoken_tpu_torch.ops import kernels, pipeline3
     from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, pack_documents
     from tiktoken_tpu_torch.ops.pipeline2 import run_chunk2, run_rows1
 
@@ -71,6 +75,16 @@ def main() -> int:
            "v2": chip_smoke.gpu_ms(lambda: run_chunk2(eng.tables, *ins2), reps=5),
            "v2_byte": chip_smoke.gpu_ms(lambda: run_chunk2(tb, *ins2, scanner="byte"), reps=5),
            "v1": chip_smoke.gpu_ms(lambda: run_rows1(tb, *ins2), reps=3)}
+    calls: list = []
+    run_rows1(tb, *(x[:128] for x in ins2), ops=chip_smoke.recording_ops(kernels.KERNEL_OPS, calls))
+    (_, args, kwargs, _), = [c for c in calls if c[0] == "grid_merge"]
+    out["grid_merge_128"] = chip_smoke.gpu_ms(lambda: kernels.grid_merge(*args, **kwargs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        kernels.grid_merge(*args, **kwargs)
+    torch.cuda.synchronize()
+    out["grid_merge_128_host"] = (time.perf_counter() - t0) / 200 * 1e3
     print(json.dumps(out))
     return 0
 

@@ -156,3 +156,82 @@ def test_train_bpe_matches_jax(pat):
     got = train_bpe(texts, 400, pat_str(pat))
     assert len(got) == 400
     assert got == jax_train(texts, 400, pat_str(pat))
+
+
+# ---------------------------------------------------------------------------
+# the pair_count kernel's design (csrc/pair_count.cu)
+# ---------------------------------------------------------------------------
+
+KERNEL_TILE = 2048  # positions of a tile of scan_kernel
+
+
+def tile_grid(seed: int = 5):
+    """Rows longer than two kernel tiles: one row of a single repeated pair,
+    rows alive only at a few columns (dead stretches across tile
+    boundaries, and a dead row between alive ones), and a random row."""
+    rng = np.random.default_rng(seed)
+    B, K = 5, 2 * KERNEL_TILE + 300
+    tokens = rng.integers(0, 5000, size=(B, K)).astype(np.uint32)
+    alive = rng.random((B, K)) < 0.7
+    piece_start = rng.random((B, K)) < 0.1
+    piece_start[:, 0] = True
+    tokens[0], alive[0], piece_start[0, 1:] = 7, True, False
+    alive[1] = False
+    alive[1, [3, KERNEL_TILE - 1, KERNEL_TILE + 1, K - 1]] = True
+    alive[2] = False
+    alive[3] = np.arange(K) % 3000 == 0
+    return tokens, alive, piece_start
+
+
+def _emulate_pair_hist(tokens, alive, piece_start, bits: int, tile: int) -> np.ndarray:
+    """scan_kernel in numpy: tiles of the flat grid taken from its end, each
+    publishing its first alive position (INC) or no alive one (AGG) and
+    looking right for the first INC; a pair counts when the next alive
+    position lies in the same row and does not start a piece; each pair
+    adds one to its bin."""
+    from tiktoken_tpu_torch.ops.pair_count import pair_hash
+
+    B, K = tokens.shape
+    N = B * K
+    tok, al, ps = tokens.reshape(-1), alive.reshape(-1), piece_start.reshape(-1)
+    n_tiles = -(-N // tile)
+    status: dict[int, tuple] = {}
+    hist = np.zeros(1 << bits, np.int64)
+    for t in reversed(range(n_tiles)):
+        f = np.arange(t * tile, min(N, (t + 1) * tile))
+        idx = f[al[f]]
+        status[t] = ("INC", int(idx[0])) if len(idx) else ("AGG",)
+        nx = N
+        for j in range(t + 1, n_tiles):
+            if status[j][0] == "INC":
+                nx = status[j][1]
+                break
+        if not len(idx):
+            status[t] = ("INC", nx)
+        nxt = np.append(idx[1:], nx)
+        ok = nxt < (idx // K + 1) * K
+        ok[ok] &= ~ps[nxt[ok]]
+        bins = pair_hash(torch.from_numpy(tok[idx[ok]].view(np.int32)),
+                         torch.from_numpy(tok[nxt[ok]].view(np.int32)), bits).numpy()
+        np.add.at(hist, bins, 1)
+    return hist.astype(np.int32)
+
+
+@pytest.mark.parametrize("tile", [128, KERNEL_TILE])
+@pytest.mark.parametrize("bits", [12, 20])
+def test_pair_hist_tiles_match_jax(bits, tile):
+    """``pair_hist`` and a numpy emulation of the kernel's design (tiles of
+    ``tile`` positions) against the JAX ``per_shard`` on a grid longer than
+    two kernel tiles: a hot bin, dead stretches across tile boundaries."""
+    from tiktoken_tpu.parallel import corpus_pair_counts as jax_counts
+    from tiktoken_tpu.parallel import data_mesh as jax_mesh
+
+    from tiktoken_tpu_torch.ops.pair_count import pair_hist
+
+    tokens, alive, piece_start = tile_grid()
+    want = jax_counts(jax_mesh(1), tokens, alive, piece_start, hist_bits=bits)[0]
+    got = pair_hist(*(torch.from_numpy(x) for x in (tokens.view(np.int32), alive, piece_start)),
+                    bits)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(_emulate_pair_hist(tokens, alive, piece_start, bits, tile), want)
+    assert want.max() >= KERNEL_TILE  # the hot bin: row 0's repeated pair

@@ -8,129 +8,144 @@
 // all-reduces over a process group). Plain PyTorch versions:
 // ops/pair_count.py pair_hist, hist_argmax.
 //
-// What bounds it on the H100: bytes. Each position's token (4 bytes) and
-// alive flag (1) are read, and piece_start (1) at each counted pair's
-// right end; the histogram (2^bits int32, 4 MB at 20 bits) is written by
-// atomics that stay in the 50 MB L2, and read once by the argmax. A hot
-// bin (a frequent pair) serialises its atomics.
+// What bounds it on the H100: adding one to a random bin per pair. Each
+// position's token (4 bytes), alive and piece_start flags (1 each) are
+// read once; but one global atomicAdd per pair into the 2^20-bin table
+// runs at the L2's atomic rate: on the training feed (70 x 166,794
+// positions, 10.7 M pairs) 0.154 ms for the adds alone, 69 G a second,
+// and 0.133 ms for as many uniform random bins (scripts/pair_hist_profile.py).
+// Histograms partitioned into shared memory were built three ways and
+// measured slower (PERF.md): in shared memory a frequent pair's adds run
+// one after another in one block (the feed's hottest bin takes 35,779),
+// and merging each tile's equal bins first costs more than it saves.
 //
-// Design: the JAX reverse cummin along a row becomes a tile-parallel scan,
-// because the training feed can hold few rows that are very long (one
-// document per row: ~70 rows of up to ~170k tokens), where a block per row
-// walking it serially would leave most of the 132 SMs idle.
-//   pass 1 (tile_first_kernel): per tile of TILE columns of one row, the
-//     first alive column (K if none);
-//   pass 2 (tile_next_kernel): one warp per row scans the tile summaries
-//     from the row's end, 32 tiles at a time: for every tile, the first
-//     alive column of any later tile;
-//   pass 3 (pair_hist_kernel): each tile finds each position's next alive
-//     column inside the tile by a block-wide suffix minimum, else takes
-//     pass 2's, hashes the pair and adds one to its bin with atomicAdd.
-// The histogram is zeroed on the stream first. The argmax is a two-stage
-// maximum over 64-bit keys (count, ~bin): the larger count wins, then the
-// smaller bin, as jnp.argmax takes the first index of the maximum.
+// Design: one pass. One block per tile of 2048 consecutive positions of
+// the flat grid, taken from the grid's end (a tile counter), each thread 8
+// positions read with 8- and 16-byte loads. A position's next alive column
+// is found inside the tile by a block suffix minimum, past it by a
+// decoupled look-back over the tiles to its right (each tile publishes its
+// first alive position at once; a tile with none publishes the first one
+// after it when its own look-back ends), so rows of any length take no
+// per-row pass. A pair counts when the next alive position lies in the
+// same row and does not start a piece; its bin of the zeroed histogram
+// takes one atomicAdd. The argmax is a two-stage maximum over 64-bit keys
+// (count, ~bin): the larger count wins, then the smaller bin, as
+// jnp.argmax takes the first index of the maximum.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int TPB = 256;  // threads per tile block
-constexpr int IPT = 8;    // columns per thread
+constexpr int IPT = 8;    // positions per thread
 constexpr int TILE = TPB * IPT;
 constexpr int NWARP = TPB / 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned long long INC = 1ull << 63, AGG = 1ull << 62, VALUE = AGG - 1;
 
-int tiles_of(int K) { return (K + TILE - 1) / TILE; }
-
-// The first alive column of this thread's IPT columns, K if none.
-__device__ __forceinline__ int first_alive(const uint8_t* row, int col0, int K, uint8_t* a) {
-  int first = K;
-#pragma unroll
-  for (int i = IPT - 1; i >= 0; --i) {
-    const int c = col0 + i;
-    a[i] = c < K ? row[c] : 0;
-    if (a[i]) first = c;
-  }
-  return first;
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
-__global__ void tile_first_kernel(const uint8_t* __restrict__ alive, int K, int nt,
-                                  int* __restrict__ tile_first) {
-  __shared__ int warp_min[NWARP];
-  const long long tile = blockIdx.x;  // b * nt + t
-  const long long b = tile / nt;
-  const int t = static_cast<int>(tile % nt);
-  uint8_t a[IPT];
-  int v = first_alive(alive + b * K, t * TILE + threadIdx.x * IPT, K, a);
-  v = __reduce_min_sync(FULL, v);
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = v;
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+__global__ void __launch_bounds__(TPB) scan_kernel(
+    const uint32_t* __restrict__ tokens, const uint8_t* __restrict__ alive,
+    const uint8_t* __restrict__ piece_start, long long N, int K, int n_tiles, uint32_t bin_mask,
+    bool vec, unsigned* __restrict__ counter, unsigned long long* __restrict__ status,
+    int* __restrict__ hist) {
+  __shared__ int s_tile;
+  __shared__ long long s_warp[NWARP], s_next;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = n_tiles - 1 - static_cast<int>(atomicAdd(counter, 1u));
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int m = warp_min[0];
-#pragma unroll
-    for (int w = 1; w < NWARP; ++w) m = min(m, warp_min[w]);
-    tile_first[tile] = m;
-  }
-}
+  const int tile = s_tile;
+  const long long f0 = static_cast<long long>(tile) * TILE + threadIdx.x * IPT;
 
-// one warp per row: tile_next[t] = min(tile_first[t+1..nt-1]), K if none
-__global__ void tile_next_kernel(const int* __restrict__ tile_first, int B, int K, int nt,
-                                 int* __restrict__ tile_next) {
-  const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= B) return;  // the whole warp leaves together
-  const int* f = tile_first + row * nt;
-  int* out = tile_next + row * nt;
-  int carry = K;  // the first alive column past the tiles done so far
-  for (int base = ((nt - 1) / 32) * 32; base >= 0; base -= 32) {
-    const int t = base + lane;
-    int v = t < nt ? f[t] : K;
+  // this thread's 8 positions
+  uint32_t tk[IPT];
+  uint8_t a[IPT], ps[IPT];
+  if (vec && f0 + IPT <= N) {
+    const uint2 va = *reinterpret_cast<const uint2*>(alive + f0);
+    const uint2 vp = *reinterpret_cast<const uint2*>(piece_start + f0);
+    const uint4 t0 = *reinterpret_cast<const uint4*>(tokens + f0);
+    const uint4 t1 = *reinterpret_cast<const uint4*>(tokens + f0 + 4);
+    const uint32_t wa[2] = {va.x, va.y}, wp[2] = {vp.x, vp.y};
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {  // inclusive suffix minimum over the lanes
-      const int y = __shfl_down_sync(FULL, v, o);
-      if (lane + o < 32) v = min(v, y);
+    for (int i = 0; i < IPT; ++i) {
+      a[i] = (wa[i / 4] >> (8 * (i % 4))) & 0xFF;
+      ps[i] = (wp[i / 4] >> (8 * (i % 4))) & 0xFF;
     }
-    int after = __shfl_down_sync(FULL, v, 1);
-    if (lane == 31) after = K;
-    if (t < nt) out[t] = min(after, carry);
-    carry = min(carry, __shfl_sync(FULL, v, 0));
-  }
-}
-
-__global__ void pair_hist_kernel(const uint32_t* __restrict__ tokens,
-                                 const uint8_t* __restrict__ alive,
-                                 const uint8_t* __restrict__ piece_start, int K, int nt,
-                                 const int* __restrict__ tile_next, uint32_t mask,
-                                 int* __restrict__ hist) {
-  __shared__ int warp_min[NWARP];
-  const long long tile = blockIdx.x;
-  const long long rbase = tile / nt * K;
-  const int col0 = static_cast<int>(tile % nt) * TILE + threadIdx.x * IPT;
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  uint8_t a[IPT];
-  int v = first_alive(alive + rbase, col0, K, a);
+    tk[0] = t0.x, tk[1] = t0.y, tk[2] = t0.z, tk[3] = t0.w;
+    tk[4] = t1.x, tk[5] = t1.y, tk[6] = t1.z, tk[7] = t1.w;
+  } else {
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {  // inclusive suffix minimum over the lanes
-    const int y = __shfl_down_sync(FULL, v, o);
+    for (int i = 0; i < IPT; ++i) {
+      const bool in = f0 + i < N;
+      a[i] = in ? alive[f0 + i] : 0;
+      ps[i] = in ? piece_start[f0 + i] : 1;
+      tk[i] = in ? tokens[f0 + i] : 0u;
+    }
+  }
+  long long first = N;  // this thread's first alive position
+#pragma unroll
+  for (int i = IPT - 1; i >= 0; --i)
+    if (a[i]) first = f0 + i;
+
+  // the first alive position after this thread's: later threads of the
+  // tile (a suffix minimum), then later tiles (the look-back)
+  long long v = first;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_down_sync(FULL, v, o);
     if (lane + o < 32) v = min(v, y);
   }
-  if (lane == 0) warp_min[wid] = v;
-  int nxt = __shfl_down_sync(FULL, v, 1);
-  if (lane == 31) nxt = K;
+  long long after = __shfl_down_sync(FULL, v, 1);
+  if (lane == 31) after = N;
+  if (lane == 0) s_warp[wid] = v;
   __syncthreads();
-  for (int w = wid + 1; w < NWARP; ++w) nxt = min(nxt, warp_min[w]);
-  nxt = min(nxt, tile_next[tile]);
-  // this thread's columns from the right: each alive one pairs with nxt
+  for (int w = wid + 1; w < NWARP; ++w) after = min(after, s_warp[w]);
+  if (threadIdx.x == 0) {
+    long long tile_first = N;
+    for (int w = 0; w < NWARP; ++w) tile_first = min(tile_first, s_warp[w]);
+    store_status(status + tile, tile_first < N ? INC | tile_first : AGG);
+    long long nx = N;
+    for (int j = tile + 1; j < n_tiles; ++j) {
+      unsigned long long s;
+      do {
+        s = load_status(status + j);
+      } while (s == 0);
+      if (s & INC) {
+        nx = static_cast<long long>(s & VALUE);
+        break;
+      }
+    }
+    if (tile_first >= N) store_status(status + tile, INC | nx);
+    s_next = nx;
+  }
+  __syncthreads();
+  after = min(after, s_next);
+
+  // this thread's pairs, right to left
+  uint32_t ntok = 0u;
+  bool nps = true;
+  if (after < N) {
+    ntok = tokens[after];
+    nps = piece_start[after] != 0;
+  }
+  long long nxt = after;
+  long long rs = min(f0 + IPT - 1, N - 1) / K * K;  // the row in hand: [rs, rs + K)
 #pragma unroll
   for (int i = IPT - 1; i >= 0; --i) {
     if (!a[i]) continue;
-    const int c = col0 + i;
-    if (nxt < K && !piece_start[rbase + nxt]) {
-      const uint32_t h = tt::mix_pair(tokens[rbase + c], tokens[rbase + nxt], 0u) & mask;
-      atomicAdd(hist + h, 1);
-    }
-    nxt = c;
+    const long long f = f0 + i;
+    while (f < rs) rs -= K;
+    if (nxt < rs + K && !nps) atomicAdd(hist + (tt::mix_pair(tk[i], ntok, 0u) & bin_mask), 1);
+    nxt = f;
+    ntok = tk[i];
+    nps = ps[i] != 0;
   }
 }
 
@@ -175,28 +190,40 @@ __global__ void argmax_final_kernel(const unsigned long long* __restrict__ parti
 
 }  // namespace
 
-// tiles per row of K columns (the wrapper sizes the [2, B * tiles] scratch)
-extern "C" int tt_pair_tiles(int K) { return tiles_of(K); }
+static int tiles_of(int B, int K) {
+  return static_cast<int>((static_cast<long long>(B) * K + TILE - 1) / TILE);
+}
+
+// int32 words of scratch tt_pair_hist takes for a [B, K] grid: the tile
+// counter (padded to 16 bytes) and a 64-bit status per tile; -1 past 2^31
+extern "C" int tt_pair_scratch_words(int B, int K) {
+  if (B < 0 || K < 0) return -1;
+  const long long words = 4 + 2ll * tiles_of(B, K);
+  return words < (1ll << 31) ? static_cast<int>(words) : -1;
+}
 
 // tokens [B, K] u32 (int32 bit patterns), alive and piece_start [B, K] u8
-// -> hist [2^bits] i32; scratch: 2 * B * tt_pair_tiles(K) int32
+// -> hist [2^bits] i32; scratch: tt_pair_scratch_words(B, K) int32, 16-byte
+// aligned (the inputs are read with vector loads where they are 16-byte
+// aligned too)
 extern "C" int tt_pair_hist(const void* tokens, const void* alive, const void* piece_start, int B,
                             int K, int bits, void* hist, void* scratch, void* stream) {
+  if (B < 0 || K < 0 || bits < 1 || bits > 30 || (reinterpret_cast<uintptr_t>(scratch) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = ((reinterpret_cast<uintptr_t>(tokens) | reinterpret_cast<uintptr_t>(alive) |
+                     reinterpret_cast<uintptr_t>(piece_start)) & 15) == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = cudaMemsetAsync(hist, 0, sizeof(int) << bits, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (B > 0 && K > 1) {
-    const int nt = tiles_of(K);
-    const long long n_tiles = static_cast<long long>(B) * nt;
-    int* tile_first = static_cast<int*>(scratch);
-    int* tile_next = tile_first + n_tiles;
-    const uint8_t* a = static_cast<const uint8_t*>(alive);
-    tile_first_kernel<<<static_cast<unsigned>(n_tiles), TPB, 0, s>>>(a, K, nt, tile_first);
-    tile_next_kernel<<<(B + 3) / 4, 128, 0, s>>>(tile_first, B, K, nt, tile_next);
-    pair_hist_kernel<<<static_cast<unsigned>(n_tiles), TPB, 0, s>>>(
-        static_cast<const uint32_t*>(tokens), a, static_cast<const uint8_t*>(piece_start), K, nt,
-        tile_next, (1u << bits) - 1u, static_cast<int*>(hist));
-  }
+  const int n_tiles = tiles_of(B, K);
+  cudaError_t e = cudaMemsetAsync(hist, 0, sizeof(int) << bits, s);
+  if (e == cudaSuccess && n_tiles > 0)
+    e = cudaMemsetAsync(scratch, 0, sizeof(int) * (4 + 2ll * n_tiles), s);
+  if (e != cudaSuccess || n_tiles == 0) return static_cast<int>(e);
+  int* words = static_cast<int*>(scratch);
+  scan_kernel<<<n_tiles, TPB, 0, s>>>(
+      static_cast<const uint32_t*>(tokens), static_cast<const uint8_t*>(alive),
+      static_cast<const uint8_t*>(piece_start), static_cast<long long>(B) * K, K, n_tiles,
+      (1u << bits) - 1u, vec, reinterpret_cast<unsigned*>(words),
+      reinterpret_cast<unsigned long long*>(words + 4), static_cast<int*>(hist));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,7 +21,8 @@ bounds it and how its design answers that):
 - ``byte_scan``: the byte-level scanners, the v2 sequential scan
   (``seq_scan``), the v1 window scan (``window_scan``) and orbit
   (``orbit``);
-- ``grid_merge``: the v1 full-grid greedy BPE and row packing;
+- ``grid_merge``: the v1 full-grid greedy BPE over a piece list sorted by
+  length, and the row packing;
 - ``pair_count``: the hashed pair histogram of a token grid
   (``tt_pair_hist``) and its first argmax (``tt_hist_argmax``).
 
@@ -124,12 +125,13 @@ _SIGNATURES = {
         "tt_orbit": [_P, _P, _P, _I, _I, _P, _P, _P],
     },
     "grid_merge": {
-        "tt_grid_merge": [_P, _I, _U, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+        "tt_grid_merge": [_P, _I, _U, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+        "tt_grid_scratch_words": [_I, _I],
     },
     "pair_count": {
         "tt_pair_hist": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
         "tt_hist_argmax": [_P, _I, _I, _P, _P, _P],
-        "tt_pair_tiles": [_I],
+        "tt_pair_scratch_words": [_I, _I],
     },
 }
 
@@ -156,13 +158,15 @@ class _Libraries:
         if not os.path.exists(nvcc):
             raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
         os.makedirs(BUILD_DIR, exist_ok=True)
-        with open(os.path.join(CSRC, "common.cuh"), "rb") as f:
-            common = f.read()
+        headers = b""  # every header of csrc/: a change to any of them rebuilds every kernel
+        for h in sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+            with open(os.path.join(CSRC, h), "rb") as f:
+                headers += h.encode() + f.read()
         targets, procs = {}, {}
         for name in KERNELS:
             src = os.path.join(CSRC, name + ".cu")
             with open(src, "rb") as f:
-                digest = hashlib.sha256(f.read() + common + " ".join(NVCC_FLAGS).encode())
+                digest = hashlib.sha256(f.read() + headers + " ".join(NVCC_FLAGS).encode())
             so = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
             targets[name] = so
             if not os.path.exists(so):
@@ -662,11 +666,15 @@ def grid_merge(buckets, byte_to_rank, rows, piece_start, n_payload, seed: int):
             _check("rows", rows, torch.uint8, (C, KL), dev), KL,
             _check("piece_start", piece_start, torch.bool, (C, K), dev),
             _check("n_payload", n_payload, torch.int32, (C,), dev), C, K]
+    words = _LIBS.load()["grid_merge"].tt_grid_scratch_words(C, K)
+    if words < 0:
+        raise ValueError(f"grid_merge: {C} rows of {K} columns are too many for one launch")
     packed = torch.empty((C, K), dtype=torch.int32, device=dev)
     counts = torch.empty(C, dtype=torch.int32, device=dev)
     rounds = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     _call("grid_merge", "tt_grid_merge", dev, *args, packed.data_ptr(), counts.data_ptr(),
-          rounds.data_ptr())
+          rounds.data_ptr(), scratch.data_ptr())
     return packed, counts, rounds
 
 
@@ -689,9 +697,11 @@ def pair_hist(tokens, alive, piece_start, bits: int):
     args = [_check("tokens", tokens, torch.int32, (B, K), dev),
             _check("alive", alive, torch.bool, (B, K), dev),
             _check("piece_start", piece_start, torch.bool, (B, K), dev), B, K, bits]
+    words = _LIBS.load()["pair_count"].tt_pair_scratch_words(B, K)
+    if words < 0:
+        raise ValueError(f"pair_hist: a [{B}, {K}] grid is too large for one launch")
     hist = torch.empty(1 << bits, dtype=torch.int32, device=dev)
-    tiles = _LIBS.load()["pair_count"].tt_pair_tiles(K)
-    scratch = torch.empty(max(1, 2 * B * tiles), dtype=torch.int32, device=dev)
+    scratch = torch.empty(max(4, words), dtype=torch.int32, device=dev)
     _call("pair_count", "tt_pair_hist", dev, *args, hist.data_ptr(), scratch.data_ptr())
     return hist
 
