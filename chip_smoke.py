@@ -8,6 +8,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 1. the card's name and power limit; the build of the seven CUDA kernels;
 2. the bench vocabulary (assets/bench_vocab2_100000.tiktoken, 100,000
    ranks) with the o200k split pattern, its tables built and uploaded;
+   then ``Encoding.warmup()``, timed apart from every main-path call: the
+   native host core built with g++ (and the pattern's byte-level DFA
+   compiled), the kernels, one empty v3 chunk;
 3. a seeded 64 MB synthetic corpus (the bench corpus recipe), cut into
    1 MB documents, plus edge documents;
 4. per kernel, on one real v3 chunk of that corpus at C=32768 rows,
@@ -39,12 +42,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``scripts/floor_kernels.cu``); a row too long for the scan's shared
    memory is refused before launch;
 5. the v3 main path: ``Encoding.encode_corpus_to_numpy`` over the corpus
-   on ``cuda``, with every kernel's launch count read around it;
+   on ``cuda`` with ``strategy="device"``, with every kernel's launch count
+   read around it;
 5b. the v2 main path: the same call with ``pipeline=2`` (the char
    scanner), again with ``scanner="byte"``, then a small ``pipeline=2``
    call of random words whose chunk overflows v2's short-miss cap and
    re-runs through v1, each with the launch counts read around it (the
    char route must launch ``tt_char_scan`` and no ``tt_seq_scan``);
+5c. the host and hybrid routes: the warmup's seconds; the native host
+   core against the pure-Python encoder (``HostBPE.encode_ordinary_python``)
+   on the edge documents and two 1 MB documents; then
+   ``encode_corpus_to_numpy`` over the corpus with ``strategy="host"`` (no
+   kernel may launch) and with ``strategy="hybrid"`` (the launch counts read
+   around it: its device worker must have taken documents and launched the
+   v3 kernels), each equal to phase 5's ids document for document, with
+   their MB/s, the documents each worker took, the device worker's summed
+   ``pack_s`` and ``fallback_s``, and ``os.cpu_count()``;
 6. every document decodes back to its bytes; the edge documents and four
    1 MB documents equal the host ``encode_ordinary``;
 6b. the v2 ids under both scanners equal the v3 ids over the whole
@@ -67,7 +80,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``atomicAdd`` a pair on the feed's precomputed bins:
    ``scripts/floor_kernels.cu``, held against the histogram).
 
-Each main-path call (phases 5, 5b, 7 and 8) sets the launch counts to 0
+Each main-path call (phases 5, 5b, 5c's hybrid call, 7 and 8) sets the launch counts to 0
 just before it and reads them just after, and fails if a kernel of its
 path was not launched, if a path that merges did not launch
 ``tt_slot_merge_packed`` and ``tt_piece_counts``, or if any path launched
@@ -156,6 +169,7 @@ PATH_KERNELS = {
     "sharded_v3_2way": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
     "sharded_v2": ("scan_rows", "byte_scan", "compaction", "grid_merge"),
     "train": ("pair_count",),
+    "hybrid": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
 }
 
 CJK = "東京タワーは高い。パリは花の都、そして京都は古都です。春はあけぼの、やうやう白くなりゆく山際。"
@@ -1090,6 +1104,11 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"vocab {len(ranks)} ranks; tables built and uploaded in "
         f"{time.perf_counter() - t0:.1f} s; {eng.vocab_report}")
+    t0 = time.perf_counter()
+    enc.warmup()
+    warmup_s = time.perf_counter() - t0
+    log(f"warmup: {warmup_s:.2f} s (native host core and its byte-level DFA, kernels, one "
+        f"empty v3 chunk)")
 
     # ---- 3: corpus ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -1174,6 +1193,11 @@ def main() -> int:
         if launches[path]["entries"].get("tt_seq_scan", 0):
             raise RuntimeError(f"the {path} path (char scanner) launched tt_seq_scan")
     phase_s["5b"] = time.perf_counter() - t0
+
+    # ---- 5c: the host and hybrid routes ---------------------------------------
+    t0 = time.perf_counter()
+    host_phase(enc, all_docs, edge, tokens, offsets, total_bytes, warmup_s, launches)
+    phase_s["5c"] = time.perf_counter() - t0
 
     # ---- 6: correctness ----------------------------------------------------
     t0 = time.perf_counter()
@@ -1288,10 +1312,72 @@ def drive(enc, eng, texts, path: str, launches: dict, *, pipeline: int, scanner:
     Returns (result, stats delta, seconds)."""
     stats0 = dict(eng.stats)
     out, secs = counted(path, launches, lambda: enc.encode_corpus_to_numpy(
-        texts, device="cuda", pipeline=pipeline, scanner=scanner))
+        texts, device="cuda", strategy="device", pipeline=pipeline, scanner=scanner))
     log(f"{path} host-clock phases (s): " + ", ".join(
         f"{k}={v:.3f}" for k, v in eng.timing.items()))
     return out, {k: eng.stats[k] - stats0[k] for k in eng.stats}, secs
+
+
+def same_ids(got, tokens, offsets) -> list[int]:
+    """The documents whose ids in ``got`` (tokens, offsets) differ from
+    phase 5's."""
+    g_tok, g_off = got
+    return [i for i in range(len(offsets) - 1) if not np.array_equal(
+        g_tok[g_off[i] : g_off[i + 1]], tokens[offsets[i] : offsets[i + 1]])]
+
+
+def host_phase(enc, all_docs, edge, tokens, offsets, total_bytes: int, warmup_s: float,
+               launches: dict) -> None:
+    """Phase 5c: the native host core against the pure-Python encoder, then
+    the corpus through the host and hybrid routes against phase 5's ids."""
+    from tiktoken_tpu_torch.ops import kernels
+
+    log(f"warmup (phase 2): {warmup_s:.2f} s")
+    host = enc._core_bpe
+    core = host.native_core()
+    for d in edge + [all_docs[len(edge)], all_docs[-1]]:
+        t0 = time.perf_counter()
+        got = core.encode_ordinary(d)
+        t1 = time.perf_counter()
+        want = host.encode_ordinary_python(d)
+        t2 = time.perf_counter()
+        if got != want:
+            raise RuntimeError(f"the native core differs from the Python encoder on a document "
+                               f"of {len(d)} chars")
+        if len(d) >= 500_000:
+            log(f"native core = Python encoder on a {len(d.encode())}-byte document: native "
+                f"{t1 - t0:.3f} s, Python {t2 - t1:.3f} s")
+    log(f"native core = Python encoder on the {len(edge)} edge documents and two 1 MB documents")
+
+    cpus = os.cpu_count()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = enc.encode_corpus_to_numpy(all_docs, device="cuda", strategy="host")
+    secs = time.perf_counter() - t0
+    if any(kernels.launches.values()):
+        raise RuntimeError(f"the host route launched kernels: {kernels.launches}")
+    bad = same_ids(got, tokens, offsets)
+    if bad:
+        raise RuntimeError(f"host route: ids differ from phase 5's in documents {bad[:10]}")
+    log(f"host route: {total_bytes / secs / 1e6:.2f} MB/s ({secs:.2f} s, {min(32, cpus)} "
+        f"threads, os.cpu_count() {cpus}); {len(all_docs)} documents equal phase 5's ids")
+
+    got, secs = counted("hybrid", launches, lambda: enc.encode_corpus_to_numpy(
+        all_docs, device="cuda", strategy="hybrid"))
+    report = enc.corpus_report
+    bad = same_ids(got, tokens, offsets)
+    if bad:
+        raise RuntimeError(f"hybrid route: ids differ from phase 5's in documents {bad[:10]}")
+    if report["strategy"] != "hybrid" or report["docs"]["device"] <= 0:
+        raise RuntimeError(f"the hybrid call's device worker took no document: {report}")
+    dt = report["device_timing"]
+    log(f"hybrid route: {total_bytes / secs / 1e6:.2f} MB/s ({secs:.2f} s); documents taken: host "
+        f"{report['docs']['host']}, device {report['docs']['device']}; device worker pack_s="
+        f"{dt.get('pack_s', 0.0):.3f} fallback_s={dt.get('fallback_s', 0.0):.3f} (summed, s), "
+        f"all phases " + ", ".join(f"{k}={v:.3f}" for k, v in dt.items())
+        + f"; os.cpu_count() {cpus}, host worker threads {max(1, min(32, (cpus or 1) - 1))}; "
+        f"{len(all_docs)} documents equal phase 5's ids")
 
 
 def sharded_phase(enc, eng, all_docs, tokens, offsets, fallback_docs: int, words: str,

@@ -40,7 +40,7 @@ def enc():
 
 
 def _check(enc, texts, **kw):
-    got = enc.encode_corpus(texts, device="cpu", **kw)
+    got = enc.encode_corpus(texts, device="cpu", strategy="device", **kw)
     oracle = make_oracle("o200k", 800)
     jax_enc = make_encoding("o200k", 800)
     for i, t in enumerate(texts):
@@ -75,7 +75,7 @@ def test_encode_corpus_matches_tiktoken(enc, corpus):
 
 def test_default_geometry_and_numpy_output(enc):
     texts = [make_mixed_corpus(3000, seed=9), CJK * 20, "tail doc 123", ""]
-    tokens, offsets = enc.encode_corpus_to_numpy(texts, device="cpu")
+    tokens, offsets = enc.encode_corpus_to_numpy(texts, device="cpu", strategy="device")
     assert tokens.dtype == np.uint32 and offsets.dtype == np.int64
     oracle = make_oracle("o200k", 800)
     for i, t in enumerate(texts):
@@ -97,7 +97,7 @@ def test_long_vocab_hit_is_reference_semantics():
     oracle = tiktoken.Encoding("longhit", pat_str=pat_str("o200k"), mergeable_ranks=ranks,
                                special_tokens={})
     texts = ["a" * 18, "throw" + "x" * 30 + "away", "a" * 17, "b" + "a" * 18]
-    got = enc.encode_corpus(texts, device="cpu")
+    got = enc.encode_corpus(texts, device="cpu", strategy="device")
     assert got == [oracle.encode_ordinary(t) for t in texts]
     assert got[0] == [256] and got[1] == [257]
 

@@ -190,7 +190,8 @@ def test_encode_corpus_v2_matches_tiktoken(enc, corpus, scanner):
     }[corpus]
     eng = enc.engine("cpu")
     before = dict(eng.stats)
-    got = enc.encode_corpus(texts, device="cpu", pipeline=2, chunk_rows=8, scanner=scanner)
+    got = enc.encode_corpus(texts, device="cpu", strategy="device", pipeline=2, chunk_rows=8,
+                            scanner=scanner)
     oracle = make_oracle("o200k", 800)
     for i, t in enumerate(texts):
         assert got[i] == oracle.encode_ordinary(t), f"doc {i}"
@@ -202,8 +203,8 @@ def test_encode_corpus_v2_matches_tiktoken(enc, corpus, scanner):
         assert eng.stats["fallback_docs"] > before["fallback_docs"]
     if corpus == "step_cap":  # bad rows under the char scan's step cap: host fallback
         assert eng.stats["fallback_docs"] - before["fallback_docs"] == (scanner == "char")
-    tokens, offsets = enc.encode_corpus_to_numpy(texts, device="cpu", pipeline=2,
-                                                 scanner=scanner)
+    tokens, offsets = enc.encode_corpus_to_numpy(texts, device="cpu", strategy="device",
+                                                 pipeline=2, scanner=scanner)
     assert tokens.dtype == np.uint32
     for i in range(len(texts)):
         assert tokens[offsets[i] : offsets[i + 1]].tolist() == got[i]
@@ -225,7 +226,8 @@ def test_row_capacity_over_256_is_capped_like_jax(enc):
     # the v3 path caps K at 256 with a warning, as DeviceEngine.encode_corpus3 does
     texts = [make_mixed_corpus(3000, seed=12), "tail doc 123"]
     with pytest.warns(UserWarning, match="row_capacity=300 capped to 256"):
-        got = enc.encode_corpus(texts, device="cpu", row_capacity=300, chunk_rows=8)
+        got = enc.encode_corpus(texts, device="cpu", strategy="device", row_capacity=300,
+                                chunk_rows=8)
     jax_enc = make_encoding("o200k", 800)
     with pytest.warns(UserWarning, match="row_capacity=300 capped to 256"):
         want = jax_enc.device_engine.encode_corpus3(texts, host_fallback=jax_enc,

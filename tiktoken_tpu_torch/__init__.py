@@ -3,10 +3,13 @@
 A port of the JAX package ``tiktoken_tpu`` (which stays the reference).
 ``Encoding.encode_corpus`` runs the v3 (or v2) chunk program through
 hand-written CUDA kernels for Hopper (``tiktoken_tpu_torch/csrc``), built
-at first use; ``device="cpu"`` runs their plain PyTorch versions instead.
+at first use (``device="cpu"`` runs their plain PyTorch versions instead),
+the native host core (``tiktoken_tpu_torch/native``, C++, built at first
+use), or both from one queue (``strategy=``).
 ``tiktoken_tpu_torch.parallel`` spreads the encoder over several devices
 and carries the pair-count training step; ``tiktoken_tpu_torch.train`` is
-the host trainer. This package imports nothing of the JAX package.
+the host trainer. Compiled DFAs are cached on disk
+(``ops/artifacts.py``). This package imports nothing of the JAX package.
 """
 
 from tiktoken_tpu_torch.core import Encoding as Encoding

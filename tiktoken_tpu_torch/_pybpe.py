@@ -9,24 +9,30 @@ A pure-Python implementation of the reference core's semantics
 - whole-piece vocabulary hits short-circuit BPE (reference:
   src/lib.rs:367).
 
-``HostBPE`` splits text with the port's own char-level scanner DFA
-(``ops.regex_compiler.scan_codepoints``), so the patterns of the shipped
-encodings need neither the ``regex`` module nor the reference library. A
-pattern outside the DFA compiler's dialect (lookbehind, ``\\b``,
-backreferences) is split with the ``regex`` module instead, imported at
-that first split, over ``rust_compat_pattern(pattern)``.
+``HostBPE.encode_ordinary`` runs the native host core (``native``, C++,
+built at first use) for every pattern inside the DFA compiler's dialect;
+the pure-Python split and merge here (``encode_ordinary_python``) are the
+spec the tests hold that core against. ``HostBPE.split`` splits text with
+the port's own char-level scanner DFA (``ops.regex_compiler.
+scan_codepoints`` over ``ops.artifacts.cached_char_dfa``, the DFA the
+engine's tables come from), so the patterns of the shipped encodings need
+neither the ``regex`` module nor the reference library. A pattern outside
+the DFA compiler's dialect (lookbehind, ``\\b``, backreferences) is
+decided by the ``PatternError`` of that compile: it is split with the
+``regex`` module instead, imported at that first split, over
+``rust_compat_pattern(pattern)``, and encoded in Python, the one route
+that does not use the native core.
 """
 
 from __future__ import annotations
 
 import heapq
+import threading
 from typing import Iterable
 
-from tiktoken_tpu_torch.ops.regex_compiler import (
-    PatternError,
-    compile_pattern_chars,
-    scan_codepoints,
-)
+from tiktoken_tpu_torch.native import NativeCore
+from tiktoken_tpu_torch.ops.artifacts import cached_char_dfa
+from tiktoken_tpu_torch.ops.regex_compiler import CharScannerDFA, PatternError, scan_codepoints
 
 RANK_MAX = 0xFFFFFFFF
 
@@ -213,6 +219,8 @@ class HostBPE:
         self.pattern = pattern
         self._dfa = None  # compiled at first use
         self._regex = None  # the regex module's pattern, where the DFA compile fails
+        self._native = None  # the native core, built at first use
+        self._native_lock = threading.Lock()
         self.decoder: dict[int, bytes] = {v: k for k, v in self.encoder.items()}
         if len(self.encoder) != len(self.decoder):
             raise ValueError(
@@ -223,24 +231,58 @@ class HostBPE:
             v: k.encode("utf-8") for k, v in special_tokens_encoder.items()
         }
 
+    def char_dfa(self) -> CharScannerDFA | None:
+        """The pattern's char-level DFA (compiled once per process, cached
+        on disk), or None for a pattern outside the DFA compiler's dialect,
+        which the ``regex`` module splits instead."""
+        if self._dfa is None and self._regex is None:
+            try:
+                self._dfa = cached_char_dfa(self.pattern)
+            except PatternError as e:
+                self._regex = _compile_regex(self.pattern, e)
+        return self._dfa
+
+    def native_core(self) -> NativeCore | None:
+        """The native core of this vocabulary and pattern, built at the
+        first call under a lock (the hybrid corpus workers race into it);
+        None for a pattern outside the DFA compiler's dialect."""
+        if self._native is None:
+            with self._native_lock:
+                if self._native is None and self.char_dfa() is not None:
+                    self._native = NativeCore(self.pattern, self.encoder)
+        return self._native
+
     def split(self, text: str) -> list[str]:
         """The pattern's pieces of ``text``: maximal munch over the char
         DFA, or the ``regex`` module's ``finditer`` for a pattern the DFA
         compiler refuses."""
-        if self._dfa is None and self._regex is None:
-            try:
-                self._dfa = compile_pattern_chars(self.pattern)
-            except PatternError as e:
-                self._regex = _compile_regex(self.pattern, e)
-        if self._regex is not None:
+        dfa = self.char_dfa()
+        if dfa is None:
             return [m.group() for m in self._regex.finditer(text)]
-        starts = scan_codepoints(self._dfa, text)
+        starts = scan_codepoints(dfa, text)
         bounds = starts + [len(text)]
         return [text[a:b] for a, b in zip(bounds, bounds[1:])]
 
     def encode_ordinary(self, text: str) -> list[int]:
         """Split with the pattern, then whole-piece hit or BPE per piece
-        (reference: src/lib.rs:360-373)."""
+        (reference: src/lib.rs:360-373): in the native core, or in Python
+        for a pattern outside the DFA compiler's dialect."""
+        core = self.native_core()
+        if core is None:
+            return self.encode_ordinary_python(text)
+        return core.encode_ordinary(text)
+
+    def encode_ordinary_batch(self, texts: list[str], num_threads: int = 8) -> list[list[int]]:
+        """``encode_ordinary`` of each text: one threaded call of the native
+        core, or a loop in Python for a pattern outside its dialect."""
+        core = self.native_core()
+        if core is None:
+            return [self.encode_ordinary_python(t) for t in texts]
+        return core.encode_ordinary_batch(texts, num_threads)
+
+    def encode_ordinary_python(self, text: str) -> list[int]:
+        """The pure-Python encoder: ``split``, then whole-piece hit or
+        ``byte_pair_encode`` per piece. The spec of the native core."""
         ret: list[int] = []
         enc = self.encoder
         for piece in self.split(text):

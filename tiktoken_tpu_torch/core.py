@@ -1,23 +1,67 @@
 """The public ``Encoding`` of the port.
 
 The same constructor and method names as the reference library's
-``Encoding`` for the part this package covers: host ``encode_ordinary``,
-``decode`` / ``decode_bytes``, and the corpus encoder on the GPU
-(``encode_corpus`` / ``encode_corpus_to_numpy``), which runs on ``cuda``
-unless the caller passes ``device="cpu"``, through the v3 program
-(``pipeline=3``, the default) or the v2 one (``pipeline=2``, with the
-char-level scanner, or the byte-level one with ``scanner="byte"``).
+``Encoding`` for the part this package covers: host ``encode_ordinary`` /
+``encode_ordinary_batch`` (the native host core), ``decode`` /
+``decode_bytes``, and the corpus encoder (``encode_corpus`` /
+``encode_corpus_to_numpy``) with the JAX package's strategies:
+
+- ``"device"``: every document through the device engine on ``device``
+  (``cuda`` unless the caller passes ``device="cpu"``, which runs the
+  kernels' plain PyTorch versions), by the v3 program (``pipeline=3``, the
+  default) or the v2 one (``pipeline=2``, with the char-level scanner, or
+  the byte-level one with ``scanner="byte"``);
+- ``"host"``: every document through the native host core, in one
+  threaded call;
+- ``"hybrid"``: the host core and the device engine take documents from one
+  queue at the same time, so the split follows each one's speed;
+- ``"auto"`` (the default): ``resolve_corpus_strategy``.
+
+Every strategy is byte-exact with ``encode_ordinary``. ``warmup`` builds
+the native core, the device tables and the kernels, and runs one empty
+chunk, so that no corpus call pays for them.
 """
 
 from __future__ import annotations
 
+import os
+import queue
+import threading
+import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from tiktoken_tpu_torch._pybpe import HostBPE
-from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, TorchEngine, check_route, resolve_device
+from tiktoken_tpu_torch.ops.engine import (
+    DEFAULT_CHUNK_ROWS,
+    DEFAULT_ROW,
+    TorchEngine,
+    check_route,
+    resolve_device,
+)
+from tiktoken_tpu_torch.ops.regex_compiler import PatternError
+
+STRATEGIES = ("auto", "host", "device", "hybrid")
+# the most a grab of the hybrid queue's device worker may hold, counted as
+# the JAX package counts it: bytes as they are, a str at two bytes a char
+HYBRID_GRAB_BYTES = 8 << 20
+
+
+def _host_text(t) -> str:
+    """A document as the host encoder takes it: a str, bytes decoded as
+    strict UTF-8 (as the device path's host fallback decodes them)."""
+    return t if isinstance(t, str) else bytes(t).decode("utf-8")
+
+
+def _fix_surrogates(text: str) -> str:
+    """Lone surrogates become U+FFFD, as in the reference."""
+    return text.encode("utf-16", "surrogatepass").decode("utf-16", "replace")
+
+
+def _grab_size(t) -> int:
+    return 2 * len(t) if isinstance(t, str) else len(t)
 
 
 class Encoding:
@@ -48,6 +92,10 @@ class Encoding:
                 raise ValueError("token ids are not dense up to explicit_n_vocab")
         self._core_bpe = HostBPE(mergeable_ranks, special_tokens, pat_str)
         self._engines: dict[torch.device, TorchEngine] = {}
+        # the last corpus call: strategy, documents per engine, seconds, and
+        # the device engine's host-clock phases (summed over the hybrid
+        # device worker's calls)
+        self.corpus_report: dict = {}
 
     def __repr__(self) -> str:
         return f"<Encoding {self.name!r}>"
@@ -64,9 +112,17 @@ class Encoding:
         try:
             return self._core_bpe.encode_ordinary(text)
         except UnicodeEncodeError:
-            # lone surrogates become U+FFFD, as in the reference
-            text = text.encode("utf-16", "surrogatepass").decode("utf-16", "replace")
-            return self._core_bpe.encode_ordinary(text)
+            return self._core_bpe.encode_ordinary(_fix_surrogates(text))
+
+    def encode_ordinary_batch(self, text: Sequence[str], *, num_threads: int = 8
+                              ) -> list[list[int]]:
+        """``encode_ordinary`` of each text, in one call of the native core
+        over ``num_threads`` threads."""
+        try:
+            return self._core_bpe.encode_ordinary_batch(list(text), num_threads)
+        except UnicodeEncodeError:
+            return self._core_bpe.encode_ordinary_batch([_fix_surrogates(t) for t in text],
+                                                        num_threads)
 
     def decode_bytes(self, tokens: Sequence[int]) -> bytes:
         """Concatenate the byte values of ``tokens``."""
@@ -88,9 +144,57 @@ class Encoding:
             self._engines[dev] = eng
         return eng
 
-    def _encode_corpus(self, texts, device, row_capacity, chunk_rows, pipeline, scanner,
+    def warmup(self, device="cuda", K: int | None = None,
+               chunk_rows: int = DEFAULT_CHUNK_ROWS) -> None:
+        """Build what the corpus calls need before the first one: the
+        native host core (and so the pattern's byte-level DFA), the tables
+        on ``device``, the kernels, and one empty v3 chunk at the geometry
+        of ``K`` and ``chunk_rows`` (``TorchEngine.warmup``)."""
+        self._core_bpe.native_core()
+        self.engine(device).warmup(K, chunk_rows)
+
+    def resolve_corpus_strategy(self, strategy: str = "auto", *, device="cuda") -> str:
+        """The strategy a corpus call with these arguments runs.
+
+        "auto" resolves to "host" when ``device`` is the CPU, as the JAX
+        package's does on a CPU backend (the plain PyTorch versions add
+        nothing beside the native core); on a GPU to "hybrid" when the host
+        has more than one core, else "host" (the device worker's host work
+        would come out of the only core). A CUDA ``device`` without CUDA
+        raises. A pattern outside the device's dialect is then kept on the
+        host by the corpus call itself."""
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown corpus strategy {strategy!r}; expected one of "
+                             + ", ".join(repr(s) for s in STRATEGIES))
+        if strategy != "auto":
+            return strategy
+        if resolve_device(device).type == "cpu":
+            return "host"
+        return "hybrid" if (os.cpu_count() or 1) > 1 else "host"
+
+    def _route(self, strategy: str, device) -> str:
+        """``resolve_corpus_strategy``; "auto" keeps a pattern outside the
+        device's dialect on the host, where an explicit "device" or
+        "hybrid" raises the engine's ``PatternError``."""
+        resolved = self.resolve_corpus_strategy(strategy, device=device)
+        if strategy == "auto" and resolved != "host":
+            try:
+                self.engine(device)
+            except PatternError:
+                return "host"
+        return resolved
+
+    def _host_encode(self, texts: list, as_numpy: bool, num_threads: int):
+        docs = [_host_text(t) for t in texts]
+        if as_numpy and self._core_bpe.native_core() is not None:
+            flat, offs = self._core_bpe.native_core().encode_ordinary_batch_arrays(
+                docs, num_threads)
+            return [flat[offs[d] : offs[d + 1]] for d in range(len(docs))]
+        got = self.encode_ordinary_batch(docs, num_threads=num_threads)
+        return [np.asarray(x, dtype=np.uint32) for x in got] if as_numpy else got
+
+    def _device_encode(self, texts, device, row_capacity, chunk_rows, pipeline, scanner,
                        as_numpy):
-        check_route(pipeline, scanner)
         eng = self.engine(device)
         if pipeline == 2:
             return eng.encode_corpus(texts, host_fallback=self._core_bpe,
@@ -99,38 +203,148 @@ class Encoding:
         return eng.encode_corpus3(texts, host_fallback=self._core_bpe, K=row_capacity,
                                   chunk_rows=chunk_rows, as_numpy=as_numpy)
 
+    def _hybrid_encode(self, texts: list, device_args: tuple, as_numpy: bool, report: dict):
+        """The hybrid queue: a host worker takes a few documents at a time
+        into the native batch call (on every core but one), and a device
+        worker takes at most a third of the queue, and at most
+        ``HYBRID_GRAB_BYTES``, into the device engine while four documents
+        or more are left. An exception in either worker stops both and is
+        raised here once both have stopped; no document is encoded twice."""
+        out: list = [None] * len(texts)
+        q: queue.Queue = queue.Queue()
+        for i in range(len(texts)):
+            q.put(i)
+        stop = threading.Event()
+        errors: list[BaseException] = []
+        n_thr = max(1, min(32, (os.cpu_count() or 1) - 1))
+        timing: dict[str, float] = {}
+
+        def grab(n_docs: int, n_bytes: int | None = None) -> list[int]:
+            idxs, size = [], 0
+            while len(idxs) < n_docs and (n_bytes is None or size < n_bytes):
+                try:
+                    i = q.get_nowait()
+                except queue.Empty:
+                    break
+                idxs.append(i)
+                size += _grab_size(texts[i])
+            return idxs
+
+        def host_worker():
+            while not stop.is_set():
+                idxs = grab(2 * n_thr)
+                if not idxs:
+                    return
+                got = self._host_encode([texts[i] for i in idxs], as_numpy, n_thr)
+                for i, toks in zip(idxs, got):
+                    out[i] = toks
+                report["docs"]["host"] += len(idxs)
+
+        def device_worker():
+            eng = self.engine(device_args[0])
+            while not stop.is_set() and q.qsize() >= 4:
+                idxs = grab(max(1, q.qsize() // 3), HYBRID_GRAB_BYTES)
+                if not idxs:
+                    return
+                got = self._device_encode([texts[i] for i in idxs], *device_args, as_numpy)
+                for k, v in eng.timing.items():
+                    timing[k] = timing.get(k, 0.0) + v
+                for i, toks in zip(idxs, got):
+                    out[i] = toks
+                report["docs"]["device"] += len(idxs)
+
+        def run(worker):
+            try:
+                worker()
+            except BaseException as e:  # noqa: BLE001 - re-raised in the caller below
+                errors.append(e)
+                stop.set()
+
+        threads = [threading.Thread(target=run, args=(w,)) for w in (host_worker, device_worker)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        report["device_timing"] = timing
+        if errors:
+            raise errors[0]
+        return out
+
+    def _encode_corpus(self, texts, device, row_capacity, chunk_rows, pipeline, scanner,
+                       strategy, as_numpy):
+        """The ids by ``strategy``: per document, or with ``as_numpy``
+        ``(tokens, offsets)``; fills ``corpus_report``."""
+        check_route(pipeline, scanner)
+        resolved = self._route(strategy, device)
+        texts = list(texts)
+        report = {"strategy": resolved, "docs": {"host": 0, "device": 0}}
+        t0 = time.perf_counter()
+        core = self._core_bpe.native_core() if resolved == "host" else None
+        if core is not None and as_numpy:
+            # the native batch call gives exactly (tokens, offsets)
+            out = core.encode_ordinary_batch_arrays([_host_text(t) for t in texts],
+                                                    max(1, min(32, os.cpu_count() or 1)))
+            report["docs"]["host"] = len(texts)
+        else:
+            if resolved == "host":
+                out = self._host_encode(texts, as_numpy, max(1, min(32, os.cpu_count() or 1)))
+                report["docs"]["host"] = len(texts)
+            elif resolved == "device":
+                out = self._device_encode(texts, device, row_capacity, chunk_rows, pipeline,
+                                          scanner, as_numpy)
+                report["docs"]["device"] = len(texts)
+                report["device_timing"] = dict(self.engine(device).timing)
+            else:
+                out = self._hybrid_encode(texts, (device, row_capacity, chunk_rows, pipeline,
+                                                  scanner), as_numpy, report)
+            if as_numpy:
+                offsets = np.zeros(len(out) + 1, dtype=np.int64)
+                np.cumsum([len(a) for a in out], out=offsets[1:])
+                tokens = (np.concatenate(out).astype(np.uint32, copy=False)
+                          if out else np.empty(0, np.uint32))
+                out = (tokens, offsets)
+        report["seconds"] = time.perf_counter() - t0
+        self.corpus_report = report
+        return out
+
     def encode_corpus(
         self,
         texts: Sequence[str] | Sequence[bytes],
         *,
         device="cuda",
+        strategy: str = "auto",
         row_capacity: int | None = None,
         chunk_rows: int | None = None,
         pipeline: int = 3,
         scanner: str = "char",
     ) -> list[list[int]]:
-        """Encode a batch of documents on ``device`` ("cuda" by default);
-        byte-exact with ``encode_ordinary``.
+        """Encode a batch of documents; byte-exact with ``encode_ordinary``.
 
-        ``pipeline=3`` (the default) runs the v3 program: handshake rows
-        and the char-level scanner. ``pipeline=2`` runs the v2 program
-        over rows cut at safe split points (``row_capacity`` bytes each,
-        256 by default), the JAX package's ``TIKTOKEN_TPU_PIPELINE=2``
-        route, and re-runs a chunk whose caps overflow through the v1
-        program. ``scanner`` applies to ``pipeline=2``: "char" (the
-        default) scans the rows with the char-level DFA, and a chunk with
-        dense non-ASCII rows overflows into v1; "byte" scans them with the
-        byte-level DFA, the JAX package's ``TIKTOKEN_TPU_SCANNER=seq``.
-        The byte-level scan table is compiled and uploaded at the first
-        call that needs it: the byte scanner, or a v1 re-run."""
+        ``strategy`` is "auto" (``resolve_corpus_strategy``), "host" (the
+        native core), "device" (the device engine on ``device``, "cuda" by
+        default) or "hybrid" (both, from one queue). The device engine runs
+        ``pipeline=3`` (the default), the v3 program: handshake rows and
+        the char-level scanner; or ``pipeline=2``, the v2 program over rows
+        cut at safe split points (``row_capacity`` bytes each, 256 by
+        default), the JAX package's ``TIKTOKEN_TPU_PIPELINE=2`` route,
+        which re-runs a chunk whose caps overflow through the v1 program.
+        ``scanner`` applies to ``pipeline=2``: "char" (the default) scans
+        the rows with the char-level DFA, and a chunk with dense non-ASCII
+        rows overflows into v1; "byte" scans them with the byte-level DFA,
+        the JAX package's ``TIKTOKEN_TPU_SCANNER=seq``. The byte-level scan
+        table is uploaded at the first call that needs it: the byte
+        scanner, or a v1 re-run. ``corpus_report`` then holds the strategy
+        run, the documents each engine took and the device's host-clock
+        phases."""
         return self._encode_corpus(texts, device, row_capacity, chunk_rows, pipeline, scanner,
-                                   False)
+                                   strategy, False)
 
     def encode_corpus_to_numpy(
         self,
         texts: Sequence[str] | Sequence[bytes],
         *,
         device="cuda",
+        strategy: str = "auto",
         row_capacity: int | None = None,
         chunk_rows: int | None = None,
         pipeline: int = 3,
@@ -138,11 +352,7 @@ class Encoding:
     ) -> tuple[np.ndarray, np.ndarray]:
         """``encode_corpus`` with array output: ``(tokens, offsets)``, where
         document ``i``'s ids are ``tokens[offsets[i]:offsets[i+1]]``
-        (uint32 / int64)."""
-        per_doc = self._encode_corpus(texts, device, row_capacity, chunk_rows, pipeline, scanner,
-                                      True)
-        offsets = np.zeros(len(per_doc) + 1, dtype=np.int64)
-        np.cumsum([len(a) for a in per_doc], out=offsets[1:])
-        tokens = (np.concatenate(per_doc).astype(np.uint32, copy=False)
-                  if per_doc else np.empty(0, np.uint32))
-        return tokens, offsets
+        (uint32 / int64). On the host the native batch call gives exactly
+        these arrays."""
+        return self._encode_corpus(texts, device, row_capacity, chunk_rows, pipeline, scanner,
+                                   strategy, True)

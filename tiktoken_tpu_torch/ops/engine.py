@@ -15,10 +15,12 @@ on two of its paths:
   byte-level one with ``scanner="byte"`` (JAX's
   ``TIKTOKEN_TPU_SCANNER=seq``).
 
-The engine builds the tables once and uploads them to its device once;
-the byte-level scan table only when a call first needs it (the byte
-scanner, or a v1 re-run), so the v3 path and a v2 call that never
-overflows never pay for it. Both paths stitch the per-row token streams
+The engine builds the tables once and uploads them to its device once,
+from the pattern's DFAs as ``ops/artifacts`` keeps them (compiled once per
+process, cached on disk); the v3 rows are cut by the native host core's
+cutter. The byte-level scan table is uploaded only when a call first needs
+it (the byte scanner, or a v1 re-run), so the v3 path and a v2 call that
+never overflows never pay for it. Both paths stitch the per-row token streams
 back into documents and hand documents the device could not finish
 exactly (``row_bad`` rows: handshake failures or unresolved scans,
 pieces over 64 bytes, v2 hard cuts) to the host engine. Those fallbacks
@@ -42,7 +44,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tiktoken_tpu_torch.ops.charclass import build_char_class_tables
+from tiktoken_tpu_torch.ops import kernels
+from tiktoken_tpu_torch.ops.artifacts import cached_char_class_tables, cached_scanner_dfa
 from tiktoken_tpu_torch.ops.pair_table import PairTable, build_pair_table
 from tiktoken_tpu_torch.ops.pieces import (
     LONG_SLOT,
@@ -62,11 +65,7 @@ from tiktoken_tpu_torch.ops.pipeline3 import (
     upload_tables,
 )
 from tiktoken_tpu_torch.ops.pipeline2 import DEFAULT_ROW, LOOK, SCANNERS, run_chunk2, run_rows1
-from tiktoken_tpu_torch.ops.regex_compiler import (
-    PatternError,
-    compile_pattern,
-    compile_pattern_chars,
-)
+from tiktoken_tpu_torch.ops.regex_compiler import PatternError
 from tiktoken_tpu_torch.ops.window_scan import hot_byte_scan_table
 
 DEFAULT_CHUNK_ROWS = 32768
@@ -225,7 +224,7 @@ def host_tables(pat_str: str, mergeable_ranks: dict[bytes, int]):
             f"device engine requires token ranks < 2**31 (got {max_rank}); "
             "use the host path for this vocabulary"
         )
-    char = build_char_class_tables(compile_pattern_chars(pat_str))
+    char = cached_char_class_tables(pat_str)
     pair = build_pair_table(mergeable_ranks)
     vocab = build_vocab_table(mergeable_ranks)
     long = build_long_vocab_table(mergeable_ranks)
@@ -420,10 +419,11 @@ def encode_corpus3_on(engines: Sequence["TorchEngine"], texts, host_fallback, K,
         warnings.warn(f"row_capacity={K} capped to {MAX_K} on the device pipeline "
                       "(scan cost grows with row length)", stacklevel=4)
     K = min(K or K_DEFAULT, MAX_K)
+    texts = list(texts)
     docs = [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in texts]
     timing.clear()
     t0 = time.perf_counter()
-    pc = pack_corpus3(docs, K)
+    pc = pack_corpus3(docs, K, utf8=[isinstance(t, str) for t in texts])
     timing["pack_s"] = time.perf_counter() - t0
     if pc.row_off.shape[0] == 0:
         return [np.empty(0, np.uint32) if as_numpy else [] for _ in docs]
@@ -485,6 +485,19 @@ class TorchEngine:
         report = _vocab_readiness(mergeable_ranks, pair, vocab, long)
         return TorchEngine(upload_tables(char, pair, vocab, long, dev), report, pat_str)
 
+    def warmup(self, K: int | None = None, chunk_rows: int = DEFAULT_CHUNK_ROWS) -> None:
+        """Build the kernels (on a GPU) and run one all-empty v3 chunk at
+        the geometry ``encode_corpus3`` runs with these arguments, so the
+        first call pays for neither."""
+        if self.device.type == "cuda":
+            kernels.build()
+        K = min(K or K_DEFAULT, MAX_K)
+        C = quantize_chunk_rows(chunk_rows, chunk_rows)
+        i32 = np.zeros(C, np.int32)
+        b1 = np.zeros(C, bool)
+        chunk = self.upload([np.zeros(chunk_bytes3(K, C), np.uint8), i32, i32, i32, b1, b1, b1])
+        run_chunk(self.tables, *chunk, K=K)[1].cpu()
+
     def byte_tables(self) -> ChunkTables:
         """The tables with the byte-level scan table of the byte scanner
         and the v1 program, at the first call copied from ``byte_source``
@@ -494,7 +507,7 @@ class TorchEngine:
                 src = self.byte_source.byte_tables()
                 table, hot = src.byte_scan, src.byte_hot
             elif self.pat_str is not None:
-                table, hot = hot_byte_scan_table(compile_pattern(self.pat_str))
+                table, hot = hot_byte_scan_table(cached_scanner_dfa(self.pat_str))
                 table = torch.as_tensor(table)
             else:
                 raise ValueError("the engine has neither a byte-level scan table nor a "

@@ -3,7 +3,8 @@
 Host side (as in the JAX package's ops/pipeline3.py): documents are cut
 every ~K bytes at a character boundary, the corpus bytes ship once, and
 each chunk of C rows is described by offsets into them (``pack_corpus3``,
-``chunk_inputs3``; the cuts come from the numpy cut finder).
+``chunk_inputs3``; the cuts come from the native host core's cutter,
+``native.pack_cuts3``, whose spec is the numpy ``_doc_cuts_np``).
 
 Device side (``run_chunk``): the same stages, caps, ``worst_case``
 variant and header layout as the JAX ``build_pipeline3_fn``, so every
@@ -27,6 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from tiktoken_tpu_torch import native
 from tiktoken_tpu_torch.ops.charclass import CharClassTables
 from tiktoken_tpu_torch.ops.kernels import KERNEL_OPS
 from tiktoken_tpu_torch.ops.pair_table import PairTable
@@ -87,10 +89,30 @@ def _doc_cuts_np(data: np.ndarray, K: int) -> np.ndarray:
     return cuts[(cuts > 0) & (cuts < n)]
 
 
-def pack_corpus3(docs: Sequence[bytes], K: int = K_DEFAULT) -> PackedCorpus3:
+def _is_utf8(doc: bytes) -> bool:
+    try:
+        doc.decode("utf-8")
+    except UnicodeDecodeError:
+        return False
+    return True
+
+
+def _doc_cuts(data: np.ndarray, K: int, utf8: bool) -> np.ndarray:
+    """Cut positions for one document: the native cutter on valid UTF-8,
+    where it is bit-exact with ``_doc_cuts_np``; on other bytes the numpy
+    cuts themselves (the native cutter cuts at the grid position where no
+    character starts in its window, and the numpy one does not)."""
+    if utf8:
+        return native.pack_cuts3(data, K, DIGIT_BACKUP)
+    return _doc_cuts_np(data, K)
+
+
+def pack_corpus3(docs: Sequence[bytes], K: int = K_DEFAULT,
+                 utf8: Sequence[bool] | None = None) -> PackedCorpus3:
     """Cut each document every ~K bytes at a character boundary (backing
-    up over at most 3 continuation bytes — script-agnostic). Fully
-    vectorized per document."""
+    up over at most 3 continuation bytes — script-agnostic). ``utf8[i]``
+    true says document i is known to be valid UTF-8 (it was encoded from a
+    str); any other document is checked before it is cut."""
     KP, KL = row_geometry(K)
     offs, pays, tots, ends, prevs, dix = [], [], [], [], [], []
     parts: list[np.ndarray] = []
@@ -104,7 +126,7 @@ def pack_corpus3(docs: Sequence[bytes], K: int = K_DEFAULT) -> PackedCorpus3:
         if n <= K:
             bounds = np.asarray([0, n], dtype=np.int64)
         else:
-            cuts = _doc_cuts_np(data, K)
+            cuts = _doc_cuts(data, K, (utf8 is not None and utf8[d_i]) or _is_utf8(doc))
             bounds = np.concatenate([[0], cuts, [n]])
         starts = bounds[:-1]
         pay = np.diff(bounds)

@@ -1,5 +1,5 @@
-"""Several devices: the device list, sharded corpus encoding, and the
-distributed pair-count training step.
+"""Several devices: the device list, sharded corpus encoding, the
+checkpointed stream encoder, and the distributed pair-count training step.
 
 The counterpart of the JAX package's ``tiktoken_tpu.parallel``: a mesh is
 a list of ``torch.device`` (``data_mesh``), the tables are replicated per
@@ -10,12 +10,14 @@ given a ``torch.distributed`` process group, over the processes.
 
 from tiktoken_tpu_torch.parallel.encode import CorpusStats, ShardedEngine
 from tiktoken_tpu_torch.parallel.mesh import data_mesh
+from tiktoken_tpu_torch.parallel.stream import StreamEncoder
 from tiktoken_tpu_torch.parallel.train import HIST_BITS, corpus_pair_counts, pair_count_step
 
 __all__ = [
     "HIST_BITS",
     "CorpusStats",
     "ShardedEngine",
+    "StreamEncoder",
     "corpus_pair_counts",
     "data_mesh",
     "pair_count_step",

@@ -37,19 +37,15 @@ import torch
 
 from tiktoken_tpu_torch.ops.engine import (
     DEFAULT_CHUNK_ROWS,
-    MAX_K,
     PackedBatch,
     TorchEngine,
     check_route,
-    chunk_bytes3,
     encode_corpus2_on,
     encode_corpus3_on,
     fetch_rows1,
-    quantize_chunk_rows,
     resolve_chunks2,
     split_rows,
 )
-from tiktoken_tpu_torch.ops.pipeline3 import K_DEFAULT, run_chunk
 
 
 @dataclass
@@ -103,14 +99,9 @@ class ShardedEngine:
 
     def warmup(self, K: int | None = None, chunk_rows: int = DEFAULT_CHUNK_ROWS) -> None:
         """Build the kernels and run one empty v3 chunk at the canonical
-        geometry on every distinct device."""
-        K = min(K or K_DEFAULT, MAX_K)
-        C = quantize_chunk_rows(chunk_rows, chunk_rows)
-        i32 = np.zeros(C, np.int32)
-        b1 = np.zeros(C, bool)
+        geometry on every distinct device (``TorchEngine.warmup``)."""
         for eng in self.engines.values():
-            chunk = eng.upload([np.zeros(chunk_bytes3(K, C), np.uint8), i32, i32, i32, b1, b1, b1])
-            run_chunk(eng.tables, *chunk, K=K)[1].cpu()
+            eng.warmup(K, chunk_rows)
 
     # -- v2 and v1 ------------------------------------------------------------
 
