@@ -80,7 +80,30 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``atomicAdd`` a pair on the feed's precomputed bins:
    ``scripts/floor_kernels.cu``, held against the histogram).
 
-Each main-path call (phases 5, 5b, 5c's hybrid call, 7 and 8) sets the launch counts to 0
+9. the public API at full width: a plugin module written into a temporary
+   directory (``tiktoken_tpu_torch_ext/bench_local.py``, put on ``sys.path``
+   before the registry first discovers plugins) registers ``bench_o200k``
+   (the bench vocabulary, ``<|endoftext|>`` = 100000, ``<|endofprompt|>`` =
+   100001); ``list_encoding_names`` holds it and the seven shipped names,
+   ``get_encoding`` gives the same object twice, ``encoding_name_for_model
+   ("gpt-4o")`` is ``"o200k_base"``; the registry's encoding's
+   ``encode_corpus_to_numpy(strategy="device")`` over the corpus (path
+   ``api_v3``) equals phase 5's ids; ``encode(allowed_special="all")`` of
+   eight 1 MB documents joined by ``<|endoftext|>``, one holding
+   ``<|endofprompt|>``, equals phase 5's ids with the special ids between
+   (and ``encode`` without it raises, ``disallowed_special=()`` equals
+   ``encode_ordinary``); ``encode_batch`` and ``encode_to_numpy`` equal
+   phase 5's ids, ``decode_batch`` / ``decode_bytes_batch`` give every
+   document back, ``decode_with_offsets`` holds on the edge documents;
+   the registry's encoding pickles as its name, phase 2's encoding (its
+   CUDA engine built) pickles whole and its copy's device ids equal phase
+   5's on the edge documents; ``device_trace`` around one more ``api_v3``
+   call gives the device busy share (the union of the kernels' intervals
+   over the call's wall time) and the five kernels with the most device
+   time; ``encode_batch`` against ``encode_ordinary_batch`` MB/s and
+   ``engine_report``.
+
+Each main-path call (phases 5, 5b, 5c's hybrid call, 7, 8 and 9) sets the launch counts to 0
 just before it and reads them just after, and fails if a kernel of its
 path was not launched, if a path that merges did not launch
 ``tt_slot_merge_packed`` and ``tt_piece_counts``, or if any path launched
@@ -170,6 +193,7 @@ PATH_KERNELS = {
     "sharded_v2": ("scan_rows", "byte_scan", "compaction", "grid_merge"),
     "train": ("pair_count",),
     "hybrid": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
+    "api_v3": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
 }
 
 CJK = "東京タワーは高い。パリは花の都、そして京都は古都です。春はあけぼの、やうやう白くなりゆく山際。"
@@ -1245,6 +1269,11 @@ def main() -> int:
         if not e["entries"]:
             raise RuntimeError(f"kernel {k} was not held against its plain version")
     phase_s["8"] = time.perf_counter() - t0
+
+    # ---- 9: the public API at full width ---------------------------------------
+    t0 = time.perf_counter()
+    api_phase(enc, all_docs, edge, tokens, offsets, total_bytes, card, launches)
+    phase_s["9"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k}={v:.1f}" for k, v in phase_s.items()))
 
     rows = []
@@ -1493,6 +1522,221 @@ def train_phase(tokens, offsets, launches: dict) -> list:
     hot_bin_grid(mesh[0])
     atomic_ms = atomic_floor_ms(pair_bins(*dev_in, HIST_BITS), HIST_BITS, h)
     return [("pair_hist", (*dev_in, HIST_BITS), {}, h), ("hist_argmax", (h,), {}, best)], atomic_ms
+
+
+BENCH_PLUGIN = """
+from tiktoken_tpu_torch.load import load_tiktoken_bpe
+from tiktoken_tpu_torch.patterns import o200k_pat_str
+
+
+def bench_o200k():
+    return {{"name": "bench_o200k", "pat_str": o200k_pat_str,
+             "mergeable_ranks": load_tiktoken_bpe({path!r}),
+             "special_tokens": {{"<|endoftext|>": 100000, "<|endofprompt|>": 100001}}}}
+
+
+ENCODING_CONSTRUCTORS = {{"bench_o200k": bench_o200k}}
+"""
+SHIPPED = ("gpt2", "r50k_base", "p50k_base", "p50k_edit", "cl100k_base", "o200k_base",
+           "o200k_harmony")
+
+
+def kernel_name(full: str) -> str:
+    """A CUDA kernel's name from a trace without its namespace noise and
+    parameter list (its template arguments kept)."""
+    name = full.replace("(anonymous namespace)::", "").removeprefix("void ")
+    depth = 0
+    for i, c in enumerate(name):
+        depth += (c == "<") - (c == ">")
+        if c == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def trace_summary(trace_dir: str, wall_s: float) -> dict:
+    """From the one Chrome trace in ``trace_dir``: the union of the CUDA
+    kernels' intervals over ``wall_s`` (the device busy share), the summed
+    ms of the package's kernels and of PyTorch's own (``at::``), and the
+    five kernels with the most device time (name, ms, launches)."""
+    (name,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, name)) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    if not kernels:
+        raise RuntimeError("the device trace holds no CUDA kernel")
+    busy_us, end = 0.0, -1.0
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(kernel_name(e["name"]), []).append(e["dur"])
+    top = sorted(((k, sum(v) / 1e3, len(v)) for k, v in by_name.items()), key=lambda x: -x[1])
+    torch_ms = sum(e["dur"] for e in kernels if "at::" in e["name"]) / 1e3
+    return {"busy_share": busy_us / 1e6 / wall_s, "busy_ms": busy_us / 1e3,
+            "launches": len(kernels), "torch_ms": torch_ms,
+            "package_ms": sum(e["dur"] for e in kernels) / 1e3 - torch_ms, "top": top[:5]}
+
+
+def api_phase(enc, all_docs, edge, tokens, offsets, total_bytes: int, card: str,
+              launches: dict) -> None:
+    """Phase 9: the registry over a local plugin, the registry's encoding on
+    the card, special tokens, batches, numpy, decode and pickling at full
+    width, and a device trace of one more main-path call."""
+    import importlib
+    import pickle
+    import tempfile
+
+    import tiktoken_tpu_torch
+    from tiktoken_tpu_torch import registry
+    from tiktoken_tpu_torch.utils import device_trace, engine_report
+
+    if registry._constructors is not None:
+        raise RuntimeError("the registry discovered its plugins before phase 9")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_api_")
+    try:
+        vocab = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                             "bench_vocab2_100000.tiktoken")
+        os.makedirs(os.path.join(tmp, "tiktoken_tpu_torch_ext"))
+        with open(os.path.join(tmp, "tiktoken_tpu_torch_ext", "bench_local.py"), "w") as f:
+            f.write(BENCH_PLUGIN.format(path=vocab))
+        sys.path.append(tmp)
+        importlib.invalidate_caches()
+
+        # the registry
+        names = tiktoken_tpu_torch.list_encoding_names()
+        if not set(SHIPPED) | {"bench_o200k"} <= set(names):
+            raise RuntimeError(f"list_encoding_names() lacks a name: {names}")
+        reg = tiktoken_tpu_torch.get_encoding("bench_o200k")
+        if tiktoken_tpu_torch.get_encoding("bench_o200k") is not reg:
+            raise RuntimeError("get_encoding gave two objects for one name")
+        if tiktoken_tpu_torch.encoding_name_for_model("gpt-4o") != "o200k_base":
+            raise RuntimeError("encoding_name_for_model('gpt-4o') is not o200k_base")
+        t0 = time.perf_counter()
+        reg.warmup()
+        log(f"registry: {names}; get_encoding('bench_o200k') is one object; its warmup "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # the registry's encoding on the card
+        got, secs = counted("api_v3", launches, lambda: reg.encode_corpus_to_numpy(
+            all_docs, device="cuda", strategy="device"))
+        bad = same_ids(got, tokens, offsets)
+        if bad:
+            raise RuntimeError(f"api_v3: ids differ from phase 5's in documents {bad[:10]}")
+        log(f"api_v3 (the registry's encoding, strategy='device'): "
+            f"{total_bytes / secs / 1e6:.2f} MB/s ({secs:.2f} s); {len(all_docs)} documents "
+            f"equal phase 5's ids; {card}")
+
+        def ids(i):
+            return tokens[offsets[i] : offsets[i + 1]]
+
+        # special tokens at full width
+        eot, eop = reg.encode_single_token("<|endoftext|>"), reg.encode_single_token(
+            "<|endofprompt|>")
+        picks = list(range(len(edge), len(edge) + 8))
+        k = picks[3]
+        cut = len(all_docs[k]) // 2
+        texts = [all_docs[i] for i in picks]
+        texts[3] = all_docs[k][:cut] + "<|endofprompt|>" + all_docs[k][cut:]
+        text = "<|endoftext|>".join(texts)
+        want = []
+        for j, i in enumerate(picks):
+            if j:
+                want.append(eot)
+            if i == k:
+                want += reg.encode_ordinary(all_docs[k][:cut]) + [eop] + reg.encode_ordinary(
+                    all_docs[k][cut:])
+            else:
+                want += ids(i).tolist()
+        t0 = time.perf_counter()
+        if reg.encode(text, allowed_special="all") != want:
+            raise RuntimeError("encode(allowed_special='all') differs from the spec")
+        secs_sp = time.perf_counter() - t0
+        try:
+            reg.encode(text)
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError("encode() of a text with a special token did not raise")
+        if reg.encode(text, disallowed_special=()) != reg.encode_ordinary(text):
+            raise RuntimeError("encode(disallowed_special=()) differs from encode_ordinary")
+        log(f"special tokens: encode(allowed_special='all') of {len(text.encode())} bytes "
+            f"({len(picks)} documents, {len(want)} ids) equals the spec in {secs_sp:.2f} s; "
+            f"encode() raises; disallowed_special=() equals encode_ordinary")
+
+        # batch, numpy and decode
+        t0 = time.perf_counter()
+        batch = reg.encode_batch(all_docs)
+        secs_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ordinary = reg.encode_ordinary_batch(all_docs)
+        secs_o = time.perf_counter() - t0
+        for name, out in (("encode_batch", batch), ("encode_ordinary_batch", ordinary)):
+            bad = [i for i in range(len(all_docs)) if out[i] != ids(i).tolist()]
+            if bad:
+                raise RuntimeError(f"{name}: ids differ from phase 5's in documents {bad[:10]}")
+        log(f"encode_batch {total_bytes / secs_b / 1e6:.2f} MB/s ({secs_b:.2f} s) against "
+            f"encode_ordinary_batch {total_bytes / secs_o / 1e6:.2f} MB/s ({secs_o:.2f} s), "
+            f"8 threads each, both equal phase 5's ids; {card}")
+        for i in picks[:2]:
+            if not np.array_equal(reg.encode_to_numpy(all_docs[i]), ids(i)):
+                raise RuntimeError(f"encode_to_numpy differs from phase 5's ids (document {i})")
+        per_doc = [ids(i) for i in range(len(all_docs))]
+        if reg.decode_batch(per_doc) != all_docs:
+            raise RuntimeError("decode_batch did not give every document back")
+        if reg.decode_bytes_batch(per_doc) != [d.encode() for d in all_docs]:
+            raise RuntimeError("decode_bytes_batch did not give every document back")
+        for i, d in enumerate(edge):
+            toks = ids(i).tolist()
+            text_i, offs = reg.decode_with_offsets(toks)
+            spec = [min(len(d) - 1, len(reg.decode_bytes(toks[:j]).decode("utf-8", "ignore")))
+                    for j in range(len(toks))]
+            if text_i != d or offs != spec:
+                raise RuntimeError(f"decode_with_offsets fails on edge document {i}")
+        log(f"encode_to_numpy equals phase 5's ids on two 1 MB documents; decode_batch and "
+            f"decode_bytes_batch give all {len(all_docs)} documents back; decode_with_offsets "
+            f"holds on the {len(edge)} edge documents")
+
+        # pickling
+        payload = pickle.dumps(reg)
+        if len(payload) > 200 or pickle.loads(payload).__dict__ is not reg.__dict__:
+            raise RuntimeError("the registry's encoding does not pickle as its name")
+        if not enc._engines:
+            raise RuntimeError("phase 2's encoding has no CUDA engine to pickle past")
+        payload2 = pickle.dumps(enc)
+        copy = pickle.loads(payload2)
+        got = copy.encode_corpus_to_numpy(edge, device="cuda", strategy="device")
+        bad = same_ids(got, tokens[: offsets[len(edge)]], offsets[: len(edge) + 1])
+        if bad:
+            raise RuntimeError(f"the unpickled encoding's ids differ on edge documents {bad}")
+        log(f"pickle: the registry's encoding as its name ({len(payload)} bytes); phase 2's "
+            f"encoding whole ({len(payload2)} bytes), its copy's device ids equal phase 5's on "
+            f"the {len(edge)} edge documents")
+
+        # a device trace of one more main-path call
+        trace_dir = os.path.join(tmp, "trace")
+        torch.cuda.synchronize()
+        with device_trace(trace_dir):
+            t0 = time.perf_counter()
+            got = reg.encode_corpus_to_numpy(all_docs, device="cuda", strategy="device")
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        if same_ids(got, tokens, offsets):
+            raise RuntimeError("the traced api_v3 call's ids differ from phase 5's")
+        tr = trace_summary(trace_dir, traced_s)
+        log(f"device trace of api_v3 (torch.profiler): traced {traced_s:.4f} s, untraced "
+            f"{secs:.4f} s; device busy share (union of kernel intervals / traced wall time) "
+            f"{tr['busy_share']:.4f} ({tr['busy_ms']:.3f} ms busy, {tr['launches']} kernel "
+            f"launches: the package's kernels {tr['package_ms']:.3f} ms, PyTorch's own "
+            f"{tr['torch_ms']:.3f} ms); {card}")
+        log("top kernels by device time: " + "; ".join(
+            f"{n[:90]} {ms:.3f} ms / {c} launches" for n, ms, c in tr["top"]))
+        log(f"engine_report(phase 2's encoding): {json.dumps(engine_report(enc))}; {card}")
+    finally:
+        if tmp in sys.path:
+            sys.path.remove(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def hot_bin_grid(device) -> None:

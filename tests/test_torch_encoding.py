@@ -111,12 +111,21 @@ def test_corpus_calls_need_cuda_unless_asked_for_the_cpu(enc, monkeypatch):
 
 
 def test_package_imports_nothing_of_jax():
+    # every module of the port and of its plugin namespace, and the registry's
+    # discovery over that namespace
     code = (
-        "import sys, tiktoken_tpu_torch, tiktoken_tpu_torch.convert, "
-        "tiktoken_tpu_torch.ops.engine, tiktoken_tpu_torch.ops.kernels; "
+        "import importlib, pkgutil, sys, tiktoken_tpu_torch, tiktoken_tpu_torch_ext; "
+        "mods = [m.name for pkg in (tiktoken_tpu_torch, tiktoken_tpu_torch_ext) for m in "
+        "pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]; "
+        "[importlib.import_module(m) for m in mods]; "
+        "assert {'tiktoken_tpu_torch.registry', 'tiktoken_tpu_torch.model', "
+        "'tiktoken_tpu_torch._educational', 'tiktoken_tpu_torch.utils.profiling', "
+        "'tiktoken_tpu_torch_ext.openai_public', 'tiktoken_tpu_torch.ops.kernels'} <= set(mods); "
+        "assert tiktoken_tpu_torch.list_encoding_names()[:2] == ['gpt2', 'r50k_base']; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'tiktoken_tpu' or m.startswith('tiktoken_tpu.') "
-        "or m.startswith('tiktoken_tpu_ext') or m in ('regex', 'tiktoken')); "
+        "or m.startswith('tiktoken_tpu_ext') "
+        "or m.split('.')[0] in ('regex', 'tiktoken', 'tiktoken_ext')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

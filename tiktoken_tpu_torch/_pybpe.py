@@ -9,6 +9,14 @@ A pure-Python implementation of the reference core's semantics
 - whole-piece vocabulary hits short-circuit BPE (reference:
   src/lib.rs:367).
 
+- special tokens are matched before ordinary tokenization; a special
+  token found but not allowed restarts the special scan one character
+  later (reference: src/lib.rs:387-401); ``encode`` returns ``(tokens,
+  last_piece_token_len)`` (reference: src/lib.rs:439-441);
+- unstable-token enumeration for completion APIs (reference:
+  src/lib.rs:444-599) and arbitrary-bytes encoding (reference:
+  src/py.rs:72-115).
+
 ``HostBPE.encode_ordinary`` runs the native host core (``native``, C++,
 built at first use) for every pattern inside the DFA compiler's dialect;
 the pure-Python split and merge here (``encode_ordinary_python``) are the
@@ -26,15 +34,22 @@ that does not use the native core.
 
 from __future__ import annotations
 
+import bisect
+import functools
 import heapq
+import re
 import threading
-from typing import Iterable
+from typing import AbstractSet, Iterable
 
 from tiktoken_tpu_torch.native import NativeCore
 from tiktoken_tpu_torch.ops.artifacts import cached_char_dfa
 from tiktoken_tpu_torch.ops.regex_compiler import CharScannerDFA, PatternError, scan_codepoints
+from tiktoken_tpu_torch.ops.unicode_tables import WHITE_SPACE_CPS
 
 RANK_MAX = 0xFFFFFFFF
+# the reference engine's \s: the Unicode White_Space property, which differs
+# from str.isspace() (U+001C..U+001F are isspace() but not White_Space)
+_WHITE_SPACE_SET = frozenset(map(chr, WHITE_SPACE_CPS))
 
 
 def rust_compat_pattern(pat_str: str) -> str:
@@ -197,6 +212,24 @@ def byte_pair_encode(piece: bytes, ranks: dict[bytes, int]) -> list[int]:
     return [ranks[piece[parts[i] : parts[i + 1]]] for i in range(len(parts) - 1)]
 
 
+def _decode_last_utf8(data: bytes) -> tuple[str | None, int]:
+    """The last UTF-8 character of ``data``: (char, the bytes it takes), or
+    (None, k) when the trailing bytes are not valid UTF-8 (k the length of
+    the trailing invalid sequence, at most 3)."""
+    if not data:
+        return None, 0
+    for j in range(1, min(4, len(data)) + 1):
+        tail = data[-j:]
+        if 0x80 <= tail[0] < 0xC0:
+            continue  # a continuation byte: the start lies further left
+        try:
+            ch = tail.decode("utf-8")
+        except UnicodeDecodeError:
+            return None, j
+        return (ch, j) if len(ch) == 1 else (None, j)
+    return None, min(3, len(data))
+
+
 def _compile_regex(pattern: str, refused: PatternError):
     """``pattern`` compiled by the ``regex`` module, for a pattern that the
     DFA compiler refused with ``refused``; without that module, a
@@ -216,7 +249,12 @@ class HostBPE:
     def __init__(self, encoder: dict[bytes, int], special_tokens_encoder: dict[str, int],
                  pattern: str):
         self.encoder = dict(encoder)
+        self.special_tokens_encoder = dict(special_tokens_encoder)
         self.pattern = pattern
+        # the specials in dict order, as literals (leftmost match, the first
+        # alternative winning at one position)
+        self.special_regex = (re.compile("|".join(map(re.escape, self.special_tokens_encoder)))
+                              if self.special_tokens_encoder else None)
         self._dfa = None  # compiled at first use
         self._regex = None  # the regex module's pattern, where the DFA compile fails
         self._native = None  # the native core, built at first use
@@ -283,18 +321,230 @@ class HostBPE:
     def encode_ordinary_python(self, text: str) -> list[int]:
         """The pure-Python encoder: ``split``, then whole-piece hit or
         ``byte_pair_encode`` per piece. The spec of the native core."""
+        return self._encode_python(text)[0]
+
+    def _encode_python(self, text: str) -> tuple[list[int], int]:
+        """``encode_ordinary_python``'s tokens and the last piece's token
+        count."""
         ret: list[int] = []
-        enc = self.encoder
+        last = 0
         for piece in self.split(text):
-            b = piece.encode("utf-8")
-            token = enc.get(b)
-            if token is not None:
-                ret.append(token)
-            else:
-                ret.extend(byte_pair_encode(b, enc))
-        return ret
+            toks = self.encode_single_piece(piece.encode("utf-8"))
+            ret.extend(toks)
+            last = len(toks)
+        return ret, last
+
+    def _encode_segment(self, text: str) -> tuple[list[int], int]:
+        """(tokens, the last piece's token count) of a text without special
+        tokens: the native core, or the Python encoder for a pattern outside
+        the DFA compiler's dialect."""
+        core = self.native_core()
+        if core is None:
+            return self._encode_python(text)
+        return core.encode_with_lptl(text.encode("utf-8"))
+
+    def encode(self, text: str, allowed_special: AbstractSet[str]) -> tuple[list[int], int]:
+        """Encode ``text``, each allowed special token to its id; returns
+        (tokens, last_piece_token_len), the latter feeding the unstable-token
+        search (reference: src/lib.rs:375-442)."""
+        ret: list[int] = []
+        start = 0
+        last_piece_token_len = 0
+        while True:
+            next_special = None
+            if self.special_regex is not None:
+                start_find = start
+                while (m := self.special_regex.search(text, start_find)) is not None:
+                    if m.group() in allowed_special:
+                        next_special = m
+                        break
+                    # a special that is not allowed restarts the search one
+                    # character later (reference: src/lib.rs:397)
+                    start_find = m.start() + 1
+            end = next_special.start() if next_special is not None else len(text)
+            if end > start:
+                toks, lptl = self._encode_segment(text[start:end])
+                ret.extend(toks)
+                if toks:
+                    last_piece_token_len = lptl
+            if next_special is None:
+                return ret, last_piece_token_len
+            ret.append(self.special_tokens_encoder[next_special.group()])
+            start = next_special.end()
+            last_piece_token_len = 0
+
+    def encode_with_special_tokens(self, text: str) -> list[int]:
+        return self.encode(text, set(self.special_tokens_encoder))[0]
+
+    def encode_single_token(self, piece: bytes) -> int:
+        """The id of the token whose bytes are ``piece``, special tokens
+        included (reference: src/py.rs:133-143)."""
+        token = self.encoder.get(piece)
+        if token is not None:
+            return token
+        try:
+            token = self.special_tokens_encoder.get(piece.decode("utf-8"))
+        except UnicodeDecodeError:
+            token = None
+        if token is not None:
+            return token
+        raise KeyError(piece)
+
+    def encode_single_piece(self, piece: bytes) -> list[int]:
+        """One piece by whole-piece hit or greedy merges, no split
+        (reference: src/py.rs:145-150)."""
+        token = self.encoder.get(piece)
+        if token is not None:
+            return [token]
+        return byte_pair_encode(piece, self.encoder)
+
+    def encode_bytes(self, data: bytes) -> list[int]:
+        """Encode arbitrary bytes: the longest valid UTF-8 prefix as text, its
+        last piece re-merged with the invalid rest (reference:
+        src/py.rs:72-115)."""
+        try:
+            text = data.decode("utf-8")
+        except UnicodeDecodeError as e:
+            valid_up_to = e.start
+        else:
+            return self.encode_ordinary(text)
+        tokens, last_piece_token_len = self._increase_last_piece_token_len(
+            *self.encode(data[:valid_up_to].decode("utf-8"), frozenset()))
+        if tokens and last_piece_token_len > 0:
+            unstable_bytes = self.decode_bytes(tokens[len(tokens) - last_piece_token_len :])
+            unstable_bytes += data[valid_up_to:]
+            del tokens[len(tokens) - last_piece_token_len :]
+        else:
+            unstable_bytes = data[valid_up_to:]
+        if unstable_bytes:
+            tokens.extend(self.encode_single_piece(unstable_bytes))
+        return tokens
+
+    def _increase_last_piece_token_len(self, tokens: list[int], last_piece_token_len: int
+                                       ) -> tuple[list[int], int]:
+        """Widen the unstable tail over a run of whitespace tokens: splits
+        inside whitespace (cl100k's ``\\s*[\\r\\n]``) are unstable too
+        (reference: src/lib.rs:444-481)."""
+
+        def all_space(token: int) -> bool:
+            b = self.decoder.get(token)
+            return b is not None and all(c in (0x20, 0x0A, 0x09) for c in b)
+
+        if last_piece_token_len > 0 and all_space(tokens[len(tokens) - last_piece_token_len]):
+            while (last_piece_token_len < len(tokens)
+                   and all_space(tokens[len(tokens) - last_piece_token_len - 1])):
+                last_piece_token_len += 1
+        return tokens, last_piece_token_len
+
+    @functools.cached_property
+    def sorted_token_bytes(self) -> list[bytes]:
+        """Every ordinary token's bytes, sorted (built at first use)."""
+        return sorted(self.encoder)
+
+    def encode_with_unstable(self, text: str, allowed_special: AbstractSet[str]
+                             ) -> tuple[list[int], set[tuple[int, ...]]]:
+        """The stable prefix's tokens and every token sequence the unstable
+        tail could become as more text arrives (reference:
+        src/lib.rs:483-599)."""
+        tokens, last_piece_token_len = self.encode(text, allowed_special)
+        if last_piece_token_len == 0:  # ends in a special token: all stable
+            return tokens, set()
+        tokens, last_piece_token_len = self._increase_last_piece_token_len(
+            tokens, last_piece_token_len)
+        unstable_bytes = self.decode_bytes(tokens[len(tokens) - last_piece_token_len :])
+        del tokens[len(tokens) - last_piece_token_len :]
+        completions: set[tuple[int, ...]] = set()
+        if not unstable_bytes:
+            return tokens, completions
+
+        sorted_tokens = self.sorted_token_bytes
+        # single tokens that start with the unstable bytes
+        point = bisect.bisect_left(sorted_tokens, unstable_bytes)
+        while point < len(sorted_tokens) and sorted_tokens[point].startswith(unstable_bytes):
+            completions.add((self.encoder[sorted_tokens[point]],))
+            point += 1
+        # at every split of the unstable bytes, extend the suffix by each
+        # token that starts with it, and encode again
+        for i in range(1, len(unstable_bytes)):
+            prefix, suffix = unstable_bytes[:i], unstable_bytes[i:]
+            point = bisect.bisect_left(sorted_tokens, suffix)
+            while point < len(sorted_tokens) and sorted_tokens[point].startswith(suffix):
+                possibility = prefix + sorted_tokens[point]
+                try:
+                    # the split may cut the extended bytes where merges ran
+                    encoded = self.encode_ordinary(possibility.decode("utf-8"))
+                except UnicodeDecodeError:
+                    encoded = byte_pair_encode(possibility, self.encoder)
+                seq: list[int] = []
+                seq_len = 0
+                for token in encoded:
+                    seq.append(token)
+                    seq_len += len(self.decoder[token])
+                    if seq_len >= len(unstable_bytes):
+                        break
+                completions.add(tuple(seq))
+                point += 1
+        # trailing whitespace can split off once more text arrives, as in
+        # gpt2's \s+(?!\S) (reference: src/lib.rs:581-596)
+        if len(unstable_bytes) > 1:
+            last_char, nbytes = _decode_last_utf8(unstable_bytes)
+            if (len(unstable_bytes) - nbytes > 0 and last_char is not None
+                    and last_char in _WHITE_SPACE_SET):
+                reencoded = byte_pair_encode(unstable_bytes[: len(unstable_bytes) - nbytes],
+                                             self.encoder)
+                reencoded.extend(byte_pair_encode(unstable_bytes[len(unstable_bytes) - nbytes :],
+                                                  self.encoder))
+                completions.add(tuple(reencoded))
+        return tokens, completions
 
     def decode_bytes(self, tokens: Iterable[int]) -> bytes:
-        dec = self.decoder
-        sdec = self.special_tokens_decoder
-        return b"".join(dec[t] if t in dec else sdec[t] for t in tokens)
+        """The tokens' bytes concatenated (reference: src/lib.rs:342-358):
+        runs of ordinary ids through the native core, one call a run, the
+        special tokens' bytes spliced in between. An id that is neither
+        ordinary nor special raises ``KeyError("Invalid token for decoding:
+        <id>")``."""
+        if iter(tokens) is tokens:  # an iterator: read it once
+            tokens = list(tokens)
+        core = self.native_core()
+        if core is not None:
+            try:
+                return core.decode_bytes(tokens)
+            except (KeyError, OverflowError):
+                pass  # a special token, or an invalid id
+            tokens = list(tokens)  # a run is a slice of a list
+            specials = self.special_tokens_decoder
+            out = bytearray()
+            run_start = 0
+            try:
+                for i, tok in enumerate(tokens):
+                    sp = specials.get(tok)
+                    if sp is not None:
+                        if i > run_start:
+                            out += core.decode_bytes(tokens[run_start:i])
+                        out += sp
+                        run_start = i + 1
+                if len(tokens) > run_start:
+                    out += core.decode_bytes(tokens[run_start:])
+                return bytes(out)
+            except (KeyError, OverflowError):
+                pass  # an invalid id in a run: named below
+        out = bytearray()
+        for token in tokens:
+            b = self.decoder.get(token)
+            if b is None:
+                b = self.special_tokens_decoder.get(token)
+                if b is None:
+                    raise KeyError(f"Invalid token for decoding: {token}")
+            out += b
+        return bytes(out)
+
+    def decode_single_token_bytes(self, token: int) -> bytes:
+        b = self.decoder.get(token)
+        if b is None:
+            b = self.special_tokens_decoder.get(token)
+        if b is None:
+            raise KeyError(str(token))
+        return b
+
+    def token_byte_values(self) -> list[bytes]:
+        return list(self.sorted_token_bytes)

@@ -1,10 +1,13 @@
 """The public ``Encoding`` of the port.
 
-The same constructor and method names as the reference library's
-``Encoding`` for the part this package covers: host ``encode_ordinary`` /
-``encode_ordinary_batch`` (the native host core), ``decode`` /
-``decode_bytes``, and the corpus encoder (``encode_corpus`` /
-``encode_corpus_to_numpy``) with the JAX package's strategies:
+The reference library's ``Encoding`` (reference: tiktoken/core.py:16-428)
+with the same constructor, method names, defaults, error types and
+messages: the host calls (``encode`` with the special-token policy,
+``encode_ordinary``, the batch, numpy and unstable-token forms, the decode
+family, single-token lookups) run on the native host core; pickling keeps
+a registered encoding by its name and any other by its four defining
+pieces. The corpus encoder (``encode_corpus`` /
+``encode_corpus_to_numpy``) has the JAX package's strategies:
 
 - ``"device"``: every document through the device engine on ``device``
   (``cuda`` unless the caller passes ``device="cpu"``, which runs the
@@ -24,11 +27,14 @@ chunk, so that no corpus call pays for them.
 
 from __future__ import annotations
 
+import functools
 import os
 import queue
+import re
 import threading
 import time
-from typing import Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import AbstractSet, Collection, Literal, NoReturn, Sequence
 
 import numpy as np
 import torch
@@ -86,10 +92,13 @@ class Encoding:
             max(mergeable_ranks.values()), max(special_tokens.values(), default=0)
         )
         if explicit_n_vocab:
+            # AssertionError, as the reference's asserts raise (but not
+            # removed under -O)
             if len(mergeable_ranks) + len(special_tokens) != explicit_n_vocab:
-                raise ValueError("ranks + special tokens do not add up to explicit_n_vocab")
+                raise AssertionError("ranks + special tokens do not add up to explicit_n_vocab")
             if self.max_token_value != explicit_n_vocab - 1:
-                raise ValueError("token ids are not dense up to explicit_n_vocab")
+                raise AssertionError("token ids are not dense up to explicit_n_vocab")
+        self._special_token_values = set(special_tokens.values())
         self._core_bpe = HostBPE(mergeable_ranks, special_tokens, pat_str)
         self._engines: dict[torch.device, TorchEngine] = {}
         # the last corpus call: strategy, documents per engine, seconds, and
@@ -100,19 +109,74 @@ class Encoding:
     def __repr__(self) -> str:
         return f"<Encoding {self.name!r}>"
 
-    @property
-    def n_vocab(self) -> int:
-        return self.max_token_value + 1
-
     # -- host ---------------------------------------------------------------
+
+    def _resolve_specials(self, text: str | None, allowed_special, disallowed_special):
+        """The "all" sentinels resolved: (allowed, disallowed). When ``text``
+        holds a disallowed special token, raises ``ValueError`` with the
+        reference's message (reference: tiktoken/core.py:116-124)."""
+        if allowed_special == "all":
+            allowed_special = self.special_tokens_set
+        if disallowed_special == "all":
+            disallowed_special = self.special_tokens_set - allowed_special
+        if disallowed_special:
+            if not isinstance(disallowed_special, frozenset):
+                disallowed_special = frozenset(disallowed_special)
+            if text is not None:
+                if match := _special_token_regex(disallowed_special).search(text):
+                    raise_disallowed_special_token(match.group())
+        return allowed_special, disallowed_special
 
     def encode_ordinary(self, text: str) -> list[int]:
         """Tokenize ``text`` on the host, special-token strings as plain
-        text."""
+        text: ``encode(text, disallowed_special=())`` without the policy."""
         try:
             return self._core_bpe.encode_ordinary(text)
         except UnicodeEncodeError:
             return self._core_bpe.encode_ordinary(_fix_surrogates(text))
+
+    def encode(
+        self,
+        text: str,
+        *,
+        allowed_special: Literal["all"] | AbstractSet[str] = set(),  # noqa: B006
+        disallowed_special: Literal["all"] | Collection[str] = "all",
+    ) -> list[int]:
+        """Tokenize ``text``, each allowed special-token string to its id.
+
+        A special-token string in untrusted input can steer a model, so by
+        default one anywhere in ``text`` raises ``ValueError``.
+        ``disallowed_special=()`` encodes such strings as plain text;
+        ``allowed_special="all"`` maps every one to its id."""
+        allowed_special, _ = self._resolve_specials(text, allowed_special, disallowed_special)
+        try:
+            return self._core_bpe.encode(text, allowed_special)[0]
+        except UnicodeEncodeError:
+            # lone surrogates become U+FFFD, as in the reference
+            return self._core_bpe.encode(_fix_surrogates(text), allowed_special)[0]
+
+    def encode_to_numpy(
+        self,
+        text: str,
+        *,
+        allowed_special: Literal["all"] | AbstractSet[str] = set(),  # noqa: B006
+        disallowed_special: Literal["all"] | Collection[str] = "all",
+    ) -> np.ndarray:
+        """``encode`` as a uint32 array. When no allowed special token
+        occurs in ``text``, the array is the buffer the native core wrote
+        (no Python list; reference: src/py.rs:186-248)."""
+        allowed_special, _ = self._resolve_specials(text, allowed_special, disallowed_special)
+        core = self._core_bpe.native_core()
+        if core is not None and not (
+                allowed_special
+                and _special_token_regex(frozenset(allowed_special)).search(text)):
+            try:
+                data = text.encode("utf-8")
+            except UnicodeEncodeError:
+                data = _fix_surrogates(text).encode("utf-8")
+            return core.encode_ordinary_numpy(data)
+        return np.asarray(self.encode(text, allowed_special=allowed_special,
+                                      disallowed_special=()), dtype=np.uint32)
 
     def encode_ordinary_batch(self, text: Sequence[str], *, num_threads: int = 8
                               ) -> list[list[int]]:
@@ -124,13 +188,153 @@ class Encoding:
             return self._core_bpe.encode_ordinary_batch([_fix_surrogates(t) for t in text],
                                                         num_threads)
 
+    def encode_batch(
+        self,
+        text: Sequence[str],
+        *,
+        num_threads: int = 8,
+        allowed_special: Literal["all"] | AbstractSet[str] = set(),  # noqa: B006
+        disallowed_special: Literal["all"] | Collection[str] = "all",
+    ) -> list[list[int]]:
+        """``encode`` of each text over a pool of ``num_threads`` threads
+        (the native core releases the GIL); the special-token policy as in
+        ``encode``."""
+        allowed_special, disallowed_special = self._resolve_specials(
+            None, allowed_special, disallowed_special)
+        encoder = functools.partial(self.encode, allowed_special=allowed_special,
+                                    disallowed_special=frozenset(disallowed_special))
+        with ThreadPoolExecutor(num_threads) as e:
+            return list(e.map(encoder, text))
+
+    def encode_with_unstable(
+        self,
+        text: str,
+        *,
+        allowed_special: Literal["all"] | AbstractSet[str] = set(),  # noqa: B006
+        disallowed_special: Literal["all"] | Collection[str] = "all",
+    ) -> tuple[list[int], list[list[int]]]:
+        """The tokens of ``text``'s stable prefix, and every token sequence
+        its unstable tail could become once more text arrives."""
+        allowed_special, _ = self._resolve_specials(text, allowed_special, disallowed_special)
+        tokens, completions = self._core_bpe.encode_with_unstable(text, allowed_special)
+        return tokens, [list(c) for c in completions]
+
+    def encode_single_token(self, text_or_bytes: str | bytes) -> int:
+        """The id of one exact token, special tokens included (no policy
+        check); ``KeyError`` when no token has these bytes."""
+        if isinstance(text_or_bytes, str):
+            text_or_bytes = text_or_bytes.encode("utf-8")
+        return self._core_bpe.encode_single_token(text_or_bytes)
+
+    # -- decoding -------------------------------------------------------------
+
     def decode_bytes(self, tokens: Sequence[int]) -> bytes:
-        """Concatenate the byte values of ``tokens``."""
+        """Concatenate the byte values of ``tokens``; ``KeyError`` for an id
+        that is neither an ordinary nor a special token."""
         return self._core_bpe.decode_bytes(tokens)
 
     def decode(self, tokens: Sequence[int], errors: str = "replace") -> str:
-        """Decode ``tokens`` to a string (``errors`` as in bytes.decode)."""
+        """Decode ``tokens`` to a string. Token boundaries need not be UTF-8
+        boundaries: ``errors="replace"`` (the default) puts U+FFFD where the
+        bytes are not UTF-8, ``errors="strict"`` raises."""
         return self._core_bpe.decode_bytes(tokens).decode("utf-8", errors=errors)
+
+    def decode_single_token_bytes(self, token: int) -> bytes:
+        """The bytes of one id (special ids included); ``KeyError`` for an id
+        outside the vocabulary."""
+        return self._core_bpe.decode_single_token_bytes(token)
+
+    def decode_tokens_bytes(self, tokens: Sequence[int]) -> list[bytes]:
+        """The bytes of each id."""
+        return [self.decode_single_token_bytes(token) for token in tokens]
+
+    def decode_with_offsets(self, tokens: Sequence[int]) -> tuple[str, list[int]]:
+        """The text and each token's first character offset. A token that
+        starts inside a character (a UTF-8 continuation byte) gets the
+        offset of that character. Raises if the bytes are not UTF-8."""
+        token_bytes = self.decode_tokens_bytes(tokens)
+        text_len = 0
+        offsets = []
+        for token in token_bytes:
+            offsets.append(max(0, text_len - (0x80 <= token[0] < 0xC0)))
+            text_len += sum(1 for c in token if not 0x80 <= c < 0xC0)
+        text = b"".join(token_bytes).decode("utf-8", errors="strict")
+        return text, offsets
+
+    def decode_batch(self, batch: Sequence[Sequence[int]], *, errors: str = "replace",
+                     num_threads: int = 8) -> list[str]:
+        """``decode`` of each token list over a pool of ``num_threads``
+        threads."""
+        decoder = functools.partial(self.decode, errors=errors)
+        with ThreadPoolExecutor(num_threads) as e:
+            return list(e.map(decoder, batch))
+
+    def decode_bytes_batch(self, batch: Sequence[Sequence[int]], *, num_threads: int = 8
+                           ) -> list[bytes]:
+        """``decode_bytes`` of each token list over a pool of
+        ``num_threads`` threads."""
+        with ThreadPoolExecutor(num_threads) as e:
+            return list(e.map(self.decode_bytes, batch))
+
+    # -- miscellaneous -------------------------------------------------------
+
+    def token_byte_values(self) -> list[bytes]:
+        """Every ordinary token's bytes, in lexicographic order."""
+        return self._core_bpe.token_byte_values()
+
+    @property
+    def eot_token(self) -> int:
+        return self._special_tokens["<|endoftext|>"]
+
+    @functools.cached_property
+    def special_tokens_set(self) -> set[str]:
+        return set(self._special_tokens.keys())
+
+    def is_special_token(self, token: int) -> bool:
+        if not isinstance(token, int):
+            raise AssertionError(f"expected an int token id, got {type(token)}")
+        return token in self._special_token_values
+
+    @property
+    def n_vocab(self) -> int:
+        """For backwards compatibility; prefer ``max_token_value + 1``."""
+        return self.max_token_value + 1
+
+    def _encode_single_piece(self, text_or_bytes: str | bytes) -> list[int]:
+        """One piece by whole-piece hit or merges: no split, no specials."""
+        if isinstance(text_or_bytes, str):
+            text_or_bytes = text_or_bytes.encode("utf-8")
+        return self._core_bpe.encode_single_piece(text_or_bytes)
+
+    def _encode_only_native_bpe(self, text: str) -> list[int]:
+        """The split and the per-piece merges as separate steps (the
+        reference's debugging hook), split by ``HostBPE.split``."""
+        ret = []
+        for piece in self._core_bpe.split(text):
+            ret.extend(self._core_bpe.encode_single_piece(piece.encode("utf-8")))
+        return ret
+
+    def _encode_bytes(self, text: bytes) -> list[int]:
+        return self._core_bpe.encode_bytes(text)
+
+    def __getstate__(self) -> object:
+        # a registered encoding pickles as its name (unpickling takes the
+        # registry's object); any other as its four defining pieces, so that
+        # neither the native core nor an engine is ever pickled
+        from tiktoken_tpu_torch import registry
+
+        if self is registry.ENCODINGS.get(self.name):
+            return self.name
+        return {"name": self.name, "pat_str": self._pat_str,
+                "mergeable_ranks": self._mergeable_ranks, "special_tokens": self._special_tokens}
+
+    def __setstate__(self, value: object) -> None:
+        from tiktoken_tpu_torch import registry
+
+        if isinstance(value, str):
+            self.__dict__ = registry.get_encoding(value).__dict__
+            return
+        self.__init__(**value)
 
     # -- device -------------------------------------------------------------
 
@@ -356,3 +560,20 @@ class Encoding:
         these arrays."""
         return self._encode_corpus(texts, device, row_capacity, chunk_rows, pipeline, scanner,
                                    strategy, True)
+
+
+@functools.lru_cache(maxsize=128)
+def _special_token_regex(tokens: frozenset[str]) -> re.Pattern[str]:
+    inner = "|".join(re.escape(token) for token in tokens)
+    return re.compile(f"({inner})")
+
+
+def raise_disallowed_special_token(token: str) -> NoReturn:
+    raise ValueError(
+        f"Encountered text corresponding to disallowed special token {token!r}.\n"
+        "If you want this text to be encoded as a special token, "
+        f"pass it to `allowed_special`, e.g. `allowed_special={{{token!r}, ...}}`.\n"
+        f"If you want this text to be encoded as normal text, disable the check for this token "
+        f"by passing `disallowed_special=(enc.special_tokens_set - {{{token!r}}})`.\n"
+        "To disable this check for all special tokens, pass `disallowed_special=()`.\n"
+    )

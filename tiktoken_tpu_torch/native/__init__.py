@@ -200,11 +200,18 @@ class NativeCore:
 
     def decode_bytes(self, tokens) -> bytes:
         """The tokens' bytes concatenated; raises ``KeyError`` on an id that
-        is not an ordinary token (a special token, or unknown)."""
-        ids = np.ascontiguousarray(tokens, dtype=np.uint32)
+        is not an ordinary token (a special token, or unknown), and
+        ``OverflowError`` on one outside [0, 2**32) (never wrapped to
+        uint32)."""
+        ids = np.asarray(tokens)
         n = len(ids)
         if n == 0:
             return b""
+        if ids.dtype != np.uint32:
+            if ids.dtype.kind not in "iu" or ids.min() < 0 or ids.max() > RANK_MAX:
+                raise OverflowError("a token id outside [0, 2**32)")
+            ids = ids.astype(np.uint32)
+        ids = np.ascontiguousarray(ids)
         cap = n * 16
         buf = ctypes.create_string_buffer(cap)
         r = self._lib.ttpu_decode(self._h, ids.ctypes.data, n, buf, cap)

@@ -249,6 +249,7 @@ def _vocab_readiness(mergeable_ranks: dict[bytes, int], pt: PairTable,
         raise ValueError(f"long vocab table covers {lvt.n_long} of {n_long} long tokens")
     return {
         "n_vocab": pt.n_vocab,
+        "pair_entries": pt.n_pairs,
         "max_token_bytes": max(lens, default=0),
         "short_tokens": n_short,  # <= SLOT bytes: device vocab-hit covered
         "long_tokens": n_long,  # SLOT+1..LONG_SLOT: device long path

@@ -1,8 +1,17 @@
 """Split patterns of the shipped encodings.
 
 Own copies of the reference's ``pat_str`` constants (the scanner compiler
-consumes them directly, so they must match the reference byte for byte).
+consumes them directly, so they must match the reference byte for byte);
+``tiktoken_tpu_torch_ext.openai_public`` builds the shipped encodings on
+them.
 """
+
+# The GPT-2 pattern
+#   's|'t|'re|'ve|'m|'ll|'d| ?[\p{L}]+| ?[\p{N}]+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+
+# with possessive quantifiers to curb backtracking.
+r50k_pat_str = (
+    r"""'(?:[sdmt]|ll|ve|re)| ?\p{L}++| ?\p{N}++| ?[^\s\p{L}\p{N}]++|\s++$|\s+(?!\S)|\s"""
+)
 
 cl100k_pat_str = (
     r"""'(?i:[sdmt]|ll|ve|re)|[^\r\n\p{L}\p{N}]?+\p{L}++|\p{N}{1,3}+|"""
