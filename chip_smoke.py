@@ -102,8 +102,26 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    over the call's wall time) and the five kernels with the most device
    time; ``encode_batch`` against ``encode_ordinary_batch`` MB/s and
    ``engine_report``.
+10. the sharded engine across processes: ``ShardedEngine(..., group=)``
+   over a one-rank NCCL group in this process (path ``xproc_nccl1``, phase
+   5's corpus), then two spawned ranks (a ``FileStore`` in a temporary
+   directory, the spawn start method): over NCCL with rank r on
+   ``cuda:r`` where there are two GPUs, else both on ``cuda:0`` gathering
+   over gloo. Each rank builds the bench encoding (the DFAs from phase 2's
+   disk cache, the kernels phase 1 built), warms up, and runs
+   ``encode_corpus3`` over phase 5's corpus (path ``xproc_v3``, timed from
+   a barrier to the end of the gather), ``encode_corpus(pipeline=2)`` over
+   phase 5b's random words cut into 8 documents (``xproc_v2``, with v1
+   re-runs), ``encode_rows`` over the words' rows (``xproc_rows``) and
+   ``corpus_pair_counts(group=)`` over its half of phase 8's grid
+   (``xproc_train``). Every rank's v3 ids must equal phase 5's with its
+   count of host fallbacks, its v2 ids the host encoder's, its rows the
+   one-device rows (and their ``CorpusStats``), its histogram phase 8's,
+   and every rank must launch each path's kernels on its GPU. It prints
+   the cross-process MB/s and each rank's host-clock phases.
 
-Each main-path call (phases 5, 5b, 5c's hybrid call, 7, 8 and 9) sets the launch counts to 0
+Each main-path call (phases 5, 5b, 5c's hybrid call, 7, 8, 9 and 10; in
+phase 10 each rank's own) sets the launch counts to 0
 just before it and reads them just after, and fails if a kernel of its
 path was not launched, if a path that merges did not launch
 ``tt_slot_merge_packed`` and ``tt_piece_counts``, or if any path launched
@@ -194,6 +212,13 @@ PATH_KERNELS = {
     "train": ("pair_count",),
     "hybrid": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
     "api_v3": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
+    # phase 10, across processes: a one-rank NCCL group in this process,
+    # then every rank of the spawned group (each rank checked on its own)
+    "xproc_nccl1": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
+    "xproc_v3": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
+    "xproc_v2": ("scan_rows", "byte_scan", "compaction", "grid_merge"),
+    "xproc_rows": ("byte_scan", "grid_merge"),
+    "xproc_train": ("pair_count",),
 }
 
 CJK = "東京タワーは高い。パリは花の都、そして京都は古都です。春はあけぼの、やうやう白くなりゆく山際。"
@@ -285,6 +310,25 @@ def bench_docs(corpus_mb: float) -> list[str]:
             d = d[:-1]
         docs.append(d.decode("utf-8", errors="ignore"))
     return docs
+
+
+def bench_encoding():
+    """The bench vocabulary (100,000 ranks) with the o200k pattern."""
+    import tiktoken_tpu_torch
+
+    ranks = tiktoken_tpu_torch.load_tiktoken_bpe(
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                     "bench_vocab2_100000.tiktoken"))
+    return tiktoken_tpu_torch.Encoding(
+        "bench_o200k", pat_str=tiktoken_tpu_torch.o200k_pat_str, mergeable_ranks=ranks,
+        special_tokens={"<|endoftext|>": len(ranks)},
+    )
+
+
+def edge_docs() -> list[str]:
+    """Dense CJK, Cyrillic and Arabic, long runs: the worst-case re-run,
+    the host fallback and the v2 char scanner's non-ASCII cap."""
+    return [CJK * 40, "x" * 9000, "1a" * 600, CJK, CYR * 30, ARABIC * 25]
 
 
 def card_line() -> str:
@@ -1101,7 +1145,6 @@ def main() -> int:
         return 1
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
-    import tiktoken_tpu_torch
     from tiktoken_tpu_torch.ops import kernels
 
     # ---- 1: card and kernel build ------------------------------------------
@@ -1118,15 +1161,10 @@ def main() -> int:
 
     # ---- 2: vocabulary and tables ------------------------------------------
     t0 = time.perf_counter()
-    ranks = tiktoken_tpu_torch.load_tiktoken_bpe(
-        os.path.join(repo, "assets", "bench_vocab2_100000.tiktoken"))
-    enc = tiktoken_tpu_torch.Encoding(
-        "bench_o200k", pat_str=tiktoken_tpu_torch.o200k_pat_str, mergeable_ranks=ranks,
-        special_tokens={"<|endoftext|>": len(ranks)},
-    )
+    enc = bench_encoding()
     eng = enc.engine("cuda")
     torch.cuda.synchronize()
-    log(f"vocab {len(ranks)} ranks; tables built and uploaded in "
+    log(f"vocab {eng.vocab_report['n_vocab']} ranks; tables built and uploaded in "
         f"{time.perf_counter() - t0:.1f} s; {eng.vocab_report}")
     t0 = time.perf_counter()
     enc.warmup()
@@ -1137,7 +1175,7 @@ def main() -> int:
     # ---- 3: corpus ---------------------------------------------------------
     t0 = time.perf_counter()
     docs = bench_docs(CORPUS_MB)
-    edge = [CJK * 40, "x" * 9000, "1a" * 600, CJK, CYR * 30, ARABIC * 25]
+    edge = edge_docs()
     all_docs = edge + docs
     total_bytes = sum(len(d.encode("utf-8")) for d in all_docs)
     log(f"corpus: {len(docs)} documents of 1 MB + {len(edge)} edge documents, "
@@ -1259,7 +1297,7 @@ def main() -> int:
 
     # ---- 8: the training step ------------------------------------------------
     t0 = time.perf_counter()
-    calls_t, per["pair_count"]["atomic_floor_ms"] = train_phase(tokens, offsets, launches)
+    calls_t, per["pair_count"]["atomic_floor_ms"], hist = train_phase(tokens, offsets, launches)
     measure(calls_t, per, "train")
     log(f"tt_pair_hist: {per['pair_count']['entries'][0]['ms']:.4f} ms against its bound "
         f"{per['pair_count']['entries'][0]['bound_ms']:.5f} ms and its atomic floor (one "
@@ -1274,6 +1312,12 @@ def main() -> int:
     t0 = time.perf_counter()
     api_phase(enc, all_docs, edge, tokens, offsets, total_bytes, card, launches)
     phase_s["9"] = time.perf_counter() - t0
+
+    # ---- 10: the sharded engine across processes ---------------------------------
+    t0 = time.perf_counter()
+    xproc_phase(enc, eng, all_docs, tokens, offsets, run["fallback_docs"], words[0], hist,
+                launches)
+    phase_s["10"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k}={v:.1f}" for k, v in phase_s.items()))
 
     rows = []
@@ -1323,17 +1367,26 @@ def counted(path: str, launches: dict, fn):
     launches[path] = {"kernels": dict(kernels.launches), "entries": dict(kernels.entry_launches)}
     log(f"{path} launches: {launches[path]['kernels']}; by entry point "
         f"{launches[path]['entries']}")
+    check_launches(path, launches[path])
+    return out, secs
+
+
+def check_launches(path: str, counts: dict, who: str = "") -> None:
+    """Fail if a kernel of the path was not launched, if a path that merges
+    did not launch ``tt_slot_merge_packed`` and ``tt_piece_counts``, or if
+    the path launched an entry point that the slot merge's redesign took
+    out. ``counts``: {"kernels": by kernel, "entries": by entry point}."""
+    where = f"the {path} path{who}"
     for k in PATH_KERNELS[path]:
-        if launches[path]["kernels"][k] <= 0:
-            raise RuntimeError(f"kernel {k} was not launched on the {path} path")
-    gone = [e for e in GONE_ENTRIES if launches[path]["entries"].get(e, 0)]
+        if counts["kernels"][k] <= 0:
+            raise RuntimeError(f"kernel {k} was not launched on {where}")
+    gone = [e for e in GONE_ENTRIES if counts["entries"].get(e, 0)]
     if gone:
-        raise RuntimeError(f"the {path} path launched {gone}")
+        raise RuntimeError(f"{where} launched {gone}")
     if "slot_merge" in PATH_KERNELS[path]:
         for e in ("tt_slot_merge_packed", "tt_piece_counts"):
-            if launches[path]["entries"].get(e, 0) <= 0:
-                raise RuntimeError(f"{e} was not launched on the {path} path")
-    return out, secs
+            if counts["entries"].get(e, 0) <= 0:
+                raise RuntimeError(f"{e} was not launched on {where}")
 
 
 def drive(enc, eng, texts, path: str, launches: dict, *, pipeline: int, scanner: str = "char"):
@@ -1465,9 +1518,23 @@ def sharded_phase(enc, eng, all_docs, tokens, offsets, fallback_docs: int, words
         log("one GPU: the launch on a device other than the current one is unexercised here")
 
 
-def train_phase(tokens, offsets, launches: dict) -> list:
+def feed_grid(tokens, offsets):
+    """The dry run's feed: one document's ids a row, a piece start at each
+    row's front: (tokens uint32 [B, K], alive, piece_start)."""
+    lens = np.diff(offsets)
+    B, K = len(lens), int(lens.max())
+    grid = np.zeros((B, K), np.uint32)
+    alive = np.arange(K)[None, :] < lens[:, None]
+    grid[alive] = tokens
+    piece_start = np.zeros((B, K), bool)
+    piece_start[:, 0] = True
+    return grid, alive, piece_start
+
+
+def train_phase(tokens, offsets, launches: dict):
     """Phase 8: the training step on the dry run's feed at full size; returns
-    the two kernel calls, for ``measure``."""
+    the two kernel calls, for ``measure``, the atomic floor and the
+    histogram."""
     import tempfile
 
     import torch.distributed as dist
@@ -1477,13 +1544,9 @@ def train_phase(tokens, offsets, launches: dict) -> list:
     from tiktoken_tpu_torch.ops.pair_count import pair_bins
     from tiktoken_tpu_torch.parallel import HIST_BITS, corpus_pair_counts, data_mesh
 
+    grid, alive, piece_start = feed_grid(tokens, offsets)
     lens = np.diff(offsets)
-    B, K = len(lens), int(lens.max())
-    grid = np.zeros((B, K), np.uint32)
-    alive = np.arange(K)[None, :] < lens[:, None]
-    grid[alive] = tokens
-    piece_start = np.zeros((B, K), bool)
-    piece_start[:, 0] = True
+    B, K = grid.shape
     mesh = data_mesh()
     (hist, best_bin, best_count), secs = counted("train", launches, lambda: corpus_pair_counts(
         mesh, grid, alive, piece_start))
@@ -1521,7 +1584,217 @@ def train_phase(tokens, offsets, launches: dict) -> list:
     best = kernels.hist_argmax(h)
     hot_bin_grid(mesh[0])
     atomic_ms = atomic_floor_ms(pair_bins(*dev_in, HIST_BITS), HIST_BITS, h)
-    return [("pair_hist", (*dev_in, HIST_BITS), {}, h), ("hist_argmax", (h,), {}, best)], atomic_ms
+    return ([("pair_hist", (*dev_in, HIST_BITS), {}, h), ("hist_argmax", (h,), {}, best)],
+            atomic_ms, hist)
+
+
+XPROC_RANKS = 2
+XPROC_DEADLINE_S = 600  # the spawned ranks are killed, and the phase fails, past this
+XPROC_PATHS = ("xproc_v3", "xproc_v2", "xproc_rows", "xproc_train")
+
+
+def word_documents(words: str, n: int = 8) -> list[str]:
+    """Phase 5b's random words cut at spaces into ``n`` documents."""
+    cuts = [0] + [words.index(" ", i * len(words) // n) for i in range(1, n)] + [len(words)]
+    return [words[a:b] for a, b in zip(cuts, cuts[1:])]
+
+
+def xproc_phase(enc, eng, all_docs, tokens, offsets, fallback_docs: int, words: str, hist,
+                launches: dict, n_ranks: int = XPROC_RANKS) -> dict:
+    """Phase 10: the sharded engine across processes. A one-rank NCCL group
+    in this process (so the NCCL collectives run on every machine), then
+    ``n_ranks`` spawned ranks: over NCCL, rank r on ``cuda:r``, when there
+    are that many GPUs; else every rank on ``cuda:0``, gathering over gloo
+    (NCCL refuses two ranks on one device). Every rank's v3 ids must equal
+    phase 5's with its host fallbacks, the v2 ids the host encoder's, the v1
+    rows the one-device rows, the pair histogram phase 8's, and every rank
+    must launch its paths' kernels. v3 runs twice in each rank, the second
+    call timed as a warm one. Returns rank 0's MB/s and seconds and every
+    rank's host-clock phases, of both v3 calls."""
+    import pickle
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, pack_documents
+    from tiktoken_tpu_torch.parallel import ShardedEngine
+
+    total_bytes = sum(len(d.encode("utf-8")) for d in all_docs)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, timeout=timedelta(seconds=120))
+        try:
+            sharded = ShardedEngine(eng, [torch.device("cuda", 0)], group=dist.group.WORLD)
+            dist.barrier(device_ids=[0])  # the communicator is set up at the first collective
+            ids, secs = counted("xproc_nccl1", launches, lambda: sharded.encode_corpus3(
+                all_docs, host_fallback=enc, as_numpy=True))
+        finally:
+            dist.destroy_process_group()
+    bad = [i for i, a in enumerate(ids) if not np.array_equal(a, tokens[offsets[i] : offsets[i + 1]])]
+    if bad or sharded.stats["fallback_docs"] != fallback_docs:
+        raise RuntimeError(f"xproc_nccl1: ids differ from phase 5's in documents {bad[:10]}, or "
+                           f"{sharded.stats['fallback_docs']} host fallbacks against {fallback_docs}")
+    log(f"xproc_nccl1 (a one-rank NCCL group, cuda:0): {total_bytes / secs / 1e6:.2f} MB/s "
+        f"({secs:.3f} s); {len(all_docs)} documents equal phase 5's ids and host fallbacks; "
+        "host-clock phases (s): " + ", ".join(f"{k}={v:.4f}" for k, v in sharded.timing.items()))
+
+    backend = "nccl" if torch.cuda.device_count() >= n_ranks else "gloo"
+    log(f"xproc: {n_ranks} ranks, " + (f"NCCL, rank r on cuda:r" if backend == "nccl" else
+        f"all on cuda:0, gathering over gloo ({torch.cuda.device_count()} GPU visible)"))
+    word_docs = word_documents(words)
+    want_v2 = [enc.encode_ordinary(d) for d in word_docs]
+    batch = pack_documents([words.encode()], DEFAULT_ROW)
+    want_rows = eng.encode_rows(batch)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(xproc_rank, args=(n_ranks, backend, tmp, all_docs, word_docs,
+                                                   words), nprocs=n_ranks, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + XPROC_DEADLINE_S
+        while not ctx.join(timeout=1):  # a rank that raised raises here, with its traceback
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError(f"the {n_ranks} ranks did not finish within "
+                                   f"{XPROC_DEADLINE_S} s")
+        spawn_s = time.perf_counter() - t0
+        res = []
+        for r in range(n_ranks):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out = pickle.load(f)
+            out["flat"] = np.load(os.path.join(tmp, f"rank{r}_ids.npy"))
+            res.append(out)
+    for out in res:
+        r = out["rank"]
+        if not out["device"].startswith("cuda"):
+            raise RuntimeError(f"rank {r} ran on {out['device']}")
+        if not (np.array_equal(out["lengths"], np.diff(offsets))
+                and np.array_equal(out["flat"], tokens)):
+            bad = [i for i in range(len(all_docs)) if out["lengths"][i] != offsets[i + 1] - offsets[i]]
+            raise RuntimeError(f"xproc_v3: rank {r}'s ids differ from phase 5's (documents "
+                               f"{bad[:10]} differ in length)")
+        if out["xproc_v3"]["stats"]["fallback_docs"] != fallback_docs:
+            raise RuntimeError(f"xproc_v3: rank {r} counted {out['xproc_v3']['stats']} host "
+                               f"fallbacks, phase 5 had {fallback_docs}")
+        if [a.tolist() for a in out["v2"]] != want_v2:
+            raise RuntimeError(f"xproc_v2: rank {r}'s ids differ from the host encoder's")
+        if out["xproc_v2"]["stats"]["v1_fallback_chunks"] <= 0:
+            raise RuntimeError("xproc_v2: no chunk re-ran through v1")
+        packed, counts, row_bad, stats = out["rows"]
+        if not (np.array_equal(packed, want_rows[0]) and np.array_equal(counts, want_rows[1])
+                and np.array_equal(row_bad, want_rows[2])):
+            raise RuntimeError(f"xproc_rows: rank {r}'s v1 rows differ from the one-device rows")
+        B = batch.rows.shape[0]
+        if not (stats.rows == B + (-B) % n_ranks and stats.tokens == int(counts.sum())
+                and stats.payload_bytes == int(batch.n_payload.sum())
+                and stats.fallback_rows == int(row_bad.sum())):
+            raise RuntimeError(f"xproc_rows: rank {r}'s counters do not add up: {stats}")
+        if not (np.array_equal(out["hist"][0], hist) and out["hist"][1] == int(np.argmax(hist))
+                and out["hist"][2] == int(hist.max())):
+            raise RuntimeError(f"xproc_train: rank {r}'s histogram differs from phase 8's")
+        for path in XPROC_PATHS:
+            check_launches(path, out[path], f" in rank {r}")
+    for path in XPROC_PATHS:
+        launches[path] = {key: {k: sum(out[path][key].get(k, 0) for out in res)
+                                for k in dict.fromkeys(k for out in res for k in out[path][key])}
+                          for key in ("kernels", "entries")}
+        log(f"{path} launches, summed over the ranks: {launches[path]['kernels']}; by rank: "
+            + "; ".join(f"{out['rank']}: {out[path]['kernels']}" for out in res))
+    r0 = res[0]
+    mbs = total_bytes / r0["xproc_v3"]["secs"] / 1e6
+    mbs_again = total_bytes / r0["xproc_v3_again"]["secs"] / 1e6
+    log(f"xproc_v3 over {n_ranks} ranks ({backend}): {mbs:.2f} MB/s, the same call again "
+        f"{mbs_again:.2f} MB/s (rank 0's wall time from a barrier to the end of the gather, "
+        f"{r0['xproc_v3']['secs']:.3f} / {r0['xproc_v3_again']['secs']:.3f} s); every rank's "
+        f"{len(all_docs)} documents equal phase 5's ids and its {fallback_docs} host "
+        f"fallbacks; {n_ranks} processes spawned, run and joined in {spawn_s:.1f} s")
+    for out in res:
+        log(f"  rank {out['rank']} on {out['device']}: {out['docs']} documents, setup "
+            f"{out['setup_s']:.2f} s (vocabulary, tables, warmup); v3 "
+            f"{out['xproc_v3']['secs']:.3f} / {out['xproc_v3_again']['secs']:.3f} s, host-clock "
+            "phases (s): " + "; ".join(", ".join(f"{k}={v:.4f}" for k, v in t.items()) for t in (
+                out["xproc_v3"]["timing"], out["xproc_v3_again"]["timing"]))
+            + f"; stats {out['xproc_v3']['stats']}")
+    log(f"xproc_v2: {len(word_docs)} documents of random words ({len(words)} bytes) equal the "
+        f"host encoder's on every rank ({r0['xproc_v2']['secs']:.3f} s); stats "
+        f"{r0['xproc_v2']['stats']}")
+    log(f"xproc_rows: {batch.rows.shape[0]} rows equal the one-device v1 rows on every rank "
+        f"({r0['xproc_rows']['secs']:.3f} s); {r0['rows'][3]}")
+    log(f"xproc_train: each rank's half of phase 8's grid, all-reduced over {backend}: the "
+        f"histogram equals phase 8's on every rank ({r0['xproc_train']['secs'] * 1e3:.1f} ms)")
+    return {"backend": backend, "ranks": n_ranks, "mb_s": [mbs, mbs_again],
+            "secs": [r0["xproc_v3"]["secs"], r0["xproc_v3_again"]["secs"]],
+            "timing": [[out[p]["timing"] for p in ("xproc_v3", "xproc_v3_again")] for out in res]}
+
+
+def xproc_rank(rank: int, n_ranks: int, backend: str, tmp: str, all_docs, word_docs,
+               words: str) -> None:
+    """One rank of phase 10 (a spawned process): its device made current,
+    the group joined, the bench encoding built (the DFAs from the disk cache
+    that phase 2 filled, the kernels that phase 1 built) and warmed up, then
+    each path with the launch counts set to 0 before it and read after,
+    timed from a barrier; the results go to ``tmp``."""
+    import pickle
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops.engine import DEFAULT_ROW, pack_documents
+    from tiktoken_tpu_torch.parallel import ShardedEngine, corpus_pair_counts
+    from tiktoken_tpu_torch.parallel.encode import document_shares
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), n_ranks),
+                            rank=rank, world_size=n_ranks, timeout=timedelta(seconds=300))
+    try:
+        t0 = time.perf_counter()
+        enc = bench_encoding()
+        enc.warmup(dev)
+        sharded = ShardedEngine(enc.engine(dev), [dev], group=dist.group.WORLD)
+        b = document_shares(all_docs, n_ranks)
+        out = {"rank": rank, "device": str(sharded.engine.device),
+               "docs": int(b[rank + 1] - b[rank]), "setup_s": time.perf_counter() - t0}
+
+        def run(path, fn):
+            torch.cuda.synchronize(dev)
+            dist.barrier(**({"device_ids": [dev.index]} if backend == "nccl" else {}))
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize(dev)
+            out[path] = {"secs": time.perf_counter() - t0, "kernels": dict(kernels.launches),
+                         "entries": dict(kernels.entry_launches),
+                         "timing": dict(sharded.timing), "stats": dict(sharded.stats)}
+            sharded.stats = dict.fromkeys(sharded.stats, 0)
+            return got
+
+        ids = run("xproc_v3", lambda: sharded.encode_corpus3(all_docs, host_fallback=enc,
+                                                             as_numpy=True))
+        out["lengths"] = np.fromiter(map(len, ids), np.int64, len(ids))
+        flat = np.concatenate(ids)
+        np.save(os.path.join(tmp, f"rank{rank}_ids.npy"), flat)
+        again = run("xproc_v3_again", lambda: sharded.encode_corpus3(
+            all_docs, host_fallback=enc, as_numpy=True))
+        if not all(np.array_equal(a, b) for a, b in zip(again, ids, strict=True)):
+            raise RuntimeError(f"rank {rank}: the second v3 call's ids differ from the first's")
+        out["v2"] = run("xproc_v2", lambda: sharded.encode_corpus(
+            word_docs, host_fallback=enc, pipeline=2, chunk_rows=128, as_numpy=True))
+        out["rows"] = run("xproc_rows", lambda: sharded.encode_rows(
+            pack_documents([words.encode()], DEFAULT_ROW)))
+        grid = feed_grid(flat, np.concatenate([[0], np.cumsum(out["lengths"])]))
+        per = -(-grid[0].shape[0] // n_ranks)
+        mine = [x[rank * per : (rank + 1) * per] for x in grid]
+        out["hist"] = run("xproc_train", lambda: corpus_pair_counts(
+            [dev], *mine, group=dist.group.WORLD))
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
 
 
 BENCH_PLUGIN = """

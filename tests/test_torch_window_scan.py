@@ -189,3 +189,33 @@ def test_hot_table_scans_equal_byte_table(dfas, name):
                     window_scan(torch.from_numpy(plain), tr, tt, K=K, window=W), strict=True):
         assert torch.equal(g, w)
     assert got[1].any() and int(got[2].max()) > K  # bad rows; walks longer than a row
+
+
+@pytest.mark.parametrize("k", [16, 48, 64])
+def test_orbit_doubling_equals_the_orbit(k):
+    """``make_orbit_doubling_fn`` (pointer doubling; nothing in the JAX
+    package calls it) computes B12's function: it equals ``make_orbit_fn``
+    and the port's ``orbit`` (``unresolved`` all False), whose kernel is
+    ``tt_orbit``, on seeded hops with dead positions (hop <= 0), hops past
+    the row, and ``valid_len`` 0, 1 and K."""
+    from tiktoken_tpu.ops.window_scan import make_orbit_doubling_fn, make_orbit_fn
+
+    from tiktoken_tpu_torch.ops.window_scan import orbit
+
+    rng = np.random.default_rng(k)
+    B = 64
+    hop = rng.integers(1, 9, size=(B, k)).astype(np.int32)
+    dead = rng.random((B, k)) < 0.08
+    hop[dead] = rng.integers(-3, 1, size=int(dead.sum()))
+    hop[:4] = rng.integers(1, k + 4, size=(4, k))
+    valid_len = rng.integers(0, k + 1, size=B).astype(np.int32)
+    valid_len[:3] = [0, 1, k]
+    want = np.asarray(jax.jit(make_orbit_fn(k))(hop, valid_len))
+    doubling = np.asarray(jax.jit(make_orbit_doubling_fn(k))(hop, valid_len))
+    got, row_bad = orbit(torch.from_numpy(hop), torch.zeros((B, k), dtype=torch.bool),
+                         torch.from_numpy(valid_len))
+    np.testing.assert_array_equal(doubling, want)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(row_bad.numpy(), (want & (hop <= 0)).any(axis=1))
+    np.testing.assert_array_equal(want[:, 0], valid_len > 0)
+    assert row_bad.any() and not row_bad.all()  # some chains end at a dead position

@@ -5,9 +5,10 @@ counts the adjacent-token pairs of its rows into a hashed histogram (the
 ``pair_count`` kernel, ``csrc/pair_count.cu``; its plain version
 ``ops/pair_count.py`` on the CPU), the histograms are summed onto the
 mesh's first device (the in-process ``psum``) and, when a
-``torch.distributed`` process group is given, all-reduced over it (NCCL on
-the card, gloo on the CPU: the counterpart of a mesh that spans hosts);
-the argmax of the sum is the next merge.
+``torch.distributed`` process group is given, all-reduced over it
+(``parallel/collective.all_reduce_sum``: NCCL on the mesh's first device,
+which must be the current one, gloo on the CPU; the counterpart of a mesh
+that spans hosts); the argmax of the sum is the next merge.
 
 A pair counts when both positions are alive, the right one is the next
 alive column of the row, and it does not start a piece. The exact host
@@ -22,6 +23,7 @@ import torch
 from tiktoken_tpu_torch.ops import kernels
 from tiktoken_tpu_torch.ops.engine import to_device
 from tiktoken_tpu_torch.ops.pair_count import hist_argmax, pair_hash, pair_hist
+from tiktoken_tpu_torch.parallel.collective import all_reduce_sum
 
 HIST_BITS = 20  # 1M bins: collision-negligible for early merge rounds
 
@@ -54,8 +56,9 @@ def corpus_pair_counts(mesh, tokens, alive, piece_start, *, hist_bits: int = HIS
     only the padded shares are copied on the host. Each device's share goes
     up as a pinned, non-blocking copy (``ops.engine.to_device``) and the
     device runs the kernel on it; the histograms are summed on
-    ``mesh[0]``, all-reduced over ``group`` if one is given, and the
-    argmax taken there. Returns (hist int32, best_bin, best_count)."""
+    ``mesh[0]``, all-reduced over ``group`` if one is given (every rank
+    calls with its own rows), and the argmax taken there. Returns (hist
+    int32, best_bin, best_count)."""
     n = len(mesh)
     grid = ((np.ascontiguousarray(tokens, dtype=np.uint32).view(np.int32), 0),
             (np.ascontiguousarray(alive, dtype=bool), False),
@@ -70,8 +73,6 @@ def corpus_pair_counts(mesh, tokens, alive, piece_start, *, hist_bits: int = HIS
     for h in hists[1:]:
         total += h.to(total.device)
     if group is not None:
-        import torch.distributed as dist
-
-        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        total = all_reduce_sum(total, group, mesh[0])
     best_bin, best_count = kernels.hist_argmax(total)
     return total.cpu().numpy(), int(best_bin), int(best_count)
