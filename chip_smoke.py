@@ -7,7 +7,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. the card's name and power limit; the build of the seven CUDA kernels;
 2. the bench vocabulary (assets/bench_vocab2_100000.tiktoken, 100,000
-   ranks) with the o200k split pattern, its tables built and uploaded;
+   ranks) with the o200k split pattern, its tables built and uploaded:
+   the pair, short-vocab and long-vocab tables through the disk cache
+   cold (built and stored) and warm (loaded), each timed, then a second
+   ``TorchEngine.build`` on the cached tables, timed;
    then ``Encoding.warmup()``, timed apart from every main-path call: the
    native host core built with g++ (and the pattern's byte-level DFA
    compiled), the kernels, one empty v3 chunk;
@@ -78,7 +81,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``tt_pair_hist`` on a hot-bin grid (one repeated pair, dead stretches
    across tiles) at 2^12, 2^20 and 2^26 bins; its atomic floor (one
    ``atomicAdd`` a pair on the feed's precomputed bins:
-   ``scripts/floor_kernels.cu``, held against the histogram).
+   ``scripts/floor_kernels.cu``, held against the histogram);
+   ``tt_hist_argmax`` against plain on edge histograms built on the card
+   (n = 1, 3, 4097, 2^20, aligned and as an unaligned view: all zeros,
+   ties at the ends and spread far apart, a maximum of 2^31 - 1), one call
+   launching one kernel (``torch.profiler``), and the time of an empty
+   one-block launch beside its own;
 
 9. the public API at full width: a plugin module written into a temporary
    directory (``tiktoken_tpu_torch_ext/bench_local.py``, put on ``sys.path``
@@ -95,6 +103,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``encode_ordinary``); ``encode_batch`` and ``encode_to_numpy`` equal
    phase 5's ids, ``decode_batch`` / ``decode_bytes_batch`` give every
    document back, ``decode_with_offsets`` holds on the edge documents;
+   48 documents with lone surrogates equal ``encode_ordinary`` on
+   ``strategy="device"`` and ``"hybrid"``;
    the registry's encoding pickles as its name, phase 2's encoding (its
    CUDA engine built) pickles whole and its copy's device ids equal phase
    5's on the edge documents; ``device_trace`` around one more ``api_v3``
@@ -107,8 +117,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    5's corpus), then two spawned ranks (a ``FileStore`` in a temporary
    directory, the spawn start method): over NCCL with rank r on
    ``cuda:r`` where there are two GPUs, else both on ``cuda:0`` gathering
-   over gloo. Each rank builds the bench encoding (the DFAs from phase 2's
-   disk cache, the kernels phase 1 built), warms up, and runs
+   over gloo. Each rank builds the bench encoding (the DFAs and the hash
+   tables from phase 2's disk cache, the kernels phase 1 built; its setup
+   and its engine's build timed), warms up, and runs
    ``encode_corpus3`` over phase 5's corpus (path ``xproc_v3``, timed from
    a barrier to the end of the gather), ``encode_corpus(pipeline=2)`` over
    phase 5b's random words cut into 8 documents (``xproc_v2``, with v1
@@ -323,6 +334,62 @@ def bench_encoding():
         "bench_o200k", pat_str=tiktoken_tpu_torch.o200k_pat_str, mergeable_ranks=ranks,
         special_tokens={"<|endoftext|>": len(ranks)},
     )
+
+
+TABLE_KINDS = ("pair-table", "vocab-table", "long-vocab-table")
+
+
+def table_files(ranks) -> list[str] | None:
+    """The disk cache's files of the engine's three hash tables for
+    ``ranks``; None when the cache is off."""
+    from tiktoken_tpu_torch.ops import artifacts
+    from tiktoken_tpu_torch.ops.engine import _pair_table_fingerprint
+
+    d = artifacts.artifact_dir()
+    if d is None:
+        return None
+    fp = _pair_table_fingerprint(ranks)
+    return [os.path.join(d, artifacts.artifact_key(kind, fp) + ".npz") for kind in TABLE_KINDS]
+
+
+def tables_on_disk(ranks) -> bool:
+    files = table_files(ranks)
+    return files is not None and all(os.path.exists(f) for f in files)
+
+
+def table_phase(enc) -> None:
+    """Phase 2's table times: the three hash tables through the disk cache
+    cold (built and stored, unless an earlier run left them on disk) and
+    warm (loaded), then a whole ``TorchEngine.build`` on the card on them."""
+    from tiktoken_tpu_torch.ops import engine
+
+    ranks = enc._mergeable_ranks
+    before = tables_on_disk(ranks)
+    t0 = time.perf_counter()
+    fp = engine._pair_table_fingerprint(ranks)
+    fp_s = time.perf_counter() - t0
+    fns = (engine._cached_pair_table, engine._cached_vocab_table, engine._cached_long_vocab_table)
+    secs = {}
+    for what in ("cold", "warm"):
+        for kind, fn in zip(TABLE_KINDS, fns):
+            t0 = time.perf_counter()
+            fn(ranks, fp)
+            secs[what, kind] = time.perf_counter() - t0
+    if table_files(ranks) is not None and not tables_on_disk(ranks):
+        raise RuntimeError(f"the tables were not stored in {table_files(ranks)}")
+    enc.engine("cuda")  # the char-level DFA compiled, the tables uploaded
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.TorchEngine.build(enc._pat_str, ranks, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"tables through the disk cache (s), the ranks' fingerprint {fp_s:.3f} once, then "
+        + "; ".join(f"{what}: " + ", ".join(f"{k} {secs[what, k]:.3f}" for k in TABLE_KINDS)
+                    + f" (sum {sum(secs[what, k] for k in TABLE_KINDS):.3f})"
+                    for what in ("cold", "warm"))
+        + ("; the cold build found them on disk from an earlier run" if before else
+           "; cold = built and stored")
+        + f"; a second TorchEngine.build on them, uploads included: {build_s:.3f} s")
 
 
 def edge_docs() -> list[str]:
@@ -945,7 +1012,9 @@ def floor_lib(proc: subprocess.Popen | None = None) -> ctypes.CDLL:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.probe_floor.argtypes = [P, I, LL, I, P, P]
         lib.atomics_only.argtypes = [P, LL, P, P]
+        lib.empty_launch.argtypes = [P]
         lib.probe_floor.restype = lib.atomics_only.restype = ctypes.c_int
+        lib.empty_launch.restype = ctypes.c_int
         _floor_lib.append(lib)
     return _floor_lib[0]
 
@@ -994,6 +1063,22 @@ def atomic_floor_ms(bins: torch.Tensor, bits: int, want: torch.Tensor | None = N
         if not torch.equal(hist, want):
             raise RuntimeError("the atomic floor's adds differ from the histogram")
     return gpu_ms(run)
+
+
+def launch_floor_ms(device) -> float:
+    """The time of one launch of an empty one-block kernel, timed back to
+    back as ``gpu_ms`` times every kernel: the floor of a one-launch
+    kernel such as ``tt_hist_argmax``."""
+    lib = floor_lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def run():
+        err = lib.empty_launch(stream)
+        if err:
+            raise RuntimeError(f"empty_launch: CUDA error {err}")
+
+    with torch.cuda.device(device):
+        return gpu_ms(run, reps=50)
 
 
 def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
@@ -1162,10 +1247,11 @@ def main() -> int:
     # ---- 2: vocabulary and tables ------------------------------------------
     t0 = time.perf_counter()
     enc = bench_encoding()
+    table_phase(enc)
     eng = enc.engine("cuda")
     torch.cuda.synchronize()
-    log(f"vocab {eng.vocab_report['n_vocab']} ranks; tables built and uploaded in "
-        f"{time.perf_counter() - t0:.1f} s; {eng.vocab_report}")
+    log(f"vocab {eng.vocab_report['n_vocab']} ranks; the vocabulary read and the tables' "
+        f"phase run in {time.perf_counter() - t0:.1f} s; {eng.vocab_report}")
     t0 = time.perf_counter()
     enc.warmup()
     warmup_s = time.perf_counter() - t0
@@ -1297,12 +1383,16 @@ def main() -> int:
 
     # ---- 8: the training step ------------------------------------------------
     t0 = time.perf_counter()
-    calls_t, per["pair_count"]["atomic_floor_ms"], hist = train_phase(tokens, offsets, launches)
+    calls_t, floors, hist = train_phase(tokens, offsets, launches)
+    per["pair_count"].update(floors)
     measure(calls_t, per, "train")
-    log(f"tt_pair_hist: {per['pair_count']['entries'][0]['ms']:.4f} ms against its bound "
-        f"{per['pair_count']['entries'][0]['bound_ms']:.5f} ms and its atomic floor (one "
-        f"atomicAdd a pair on the feed's precomputed bins) "
-        f"{per['pair_count']['atomic_floor_ms']:.4f} ms")
+    hist_e, arg_e = per["pair_count"]["entries"]
+    log(f"tt_pair_hist: {hist_e['ms']:.4f} ms against its bound {hist_e['bound_ms']:.5f} ms and "
+        f"its atomic floor (one atomicAdd a pair on the feed's precomputed bins) "
+        f"{floors['atomic_floor_ms']:.4f} ms")
+    log(f"tt_hist_argmax: {arg_e['ms']:.5f} ms (one launch) against its bound "
+        f"{arg_e['bound_ms']:.5f} ms, torch.argmax {arg_e['library_ms']:.5f} ms and an empty "
+        f"one-block launch {floors['launch_floor_ms']:.5f} ms (both timed as the kernel); {card}")
     for k, e in per.items():
         if not e["entries"]:
             raise RuntimeError(f"kernel {k} was not held against its plain version")
@@ -1334,7 +1424,8 @@ def main() -> int:
             library_ms=e["library_ms"],
             **({"scan_study": {"v3": study3, "v2": study2}} if k == "scan_rows" else {}),
             **({"scan_study": {"v2_byte": study_b}} if k == "byte_scan" else {}),
-            **{f: e[f] for f in ("probe_floor_ms", "atomic_floor_ms") if f in e},
+            **{f: e[f] for f in ("probe_floor_ms", "atomic_floor_ms", "launch_floor_ms")
+               if f in e},
             by_program={prog: dict(
                 ms=sum(x["ms"] for x in e["entries"] if x["program"] == prog),
                 plain_ms=sum(x["plain_ms"] for x in e["entries"] if x["program"] == prog),
@@ -1583,9 +1674,70 @@ def train_phase(tokens, offsets, launches: dict):
         f"{len(mesh)} GPU(s) {whole_ms:.2f} ms; the kernels' device ms follow ('train')")
     best = kernels.hist_argmax(h)
     hot_bin_grid(mesh[0])
-    atomic_ms = atomic_floor_ms(pair_bins(*dev_in, HIST_BITS), HIST_BITS, h)
+    argmax_edges(mesh[0])
+    argmax_one_launch(h)
+    floors = {"atomic_floor_ms": atomic_floor_ms(pair_bins(*dev_in, HIST_BITS), HIST_BITS, h),
+              "launch_floor_ms": launch_floor_ms(mesh[0])}
     return ([("pair_hist", (*dev_in, HIST_BITS), {}, h), ("hist_argmax", (h,), {}, best)],
-            atomic_ms, hist)
+            floors, hist)
+
+
+def argmax_edges(device) -> None:
+    """``tt_hist_argmax`` against ``pair_count.hist_argmax`` (exact) on edge
+    histograms built on the card at n = 1, 3, 4097 and 2^20, each as a
+    16-byte aligned tensor and as an unaligned view (``base[1:]``): all
+    zeros; the maximum tied at the first and the last bin; a tie spread
+    over bins far apart (different blocks at 2^20); one maximum of 2^31 - 1
+    in the middle."""
+    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops.pair_count import hist_argmax
+
+    rng = np.random.default_rng(13)
+    n_cases = 0
+    for n in (1, 3, 4097, 1 << 20):
+        ends = rng.integers(0, 50, n).astype(np.int32)
+        ends[[0, -1]] = 99
+        spread = rng.integers(0, 50, n).astype(np.int32)
+        spread[np.linspace(n // 7, n - 1, 5).astype(np.int64)] = 99
+        big = rng.integers(0, 1 << 30, n).astype(np.int32)
+        big[n // 2] = np.iinfo(np.int32).max
+        for name, h in (("zeros", np.zeros(n, np.int32)), ("first and last", ends),
+                        ("spread", spread), ("2^31 - 1", big)):
+            for unaligned in (False, True):
+                base = torch.from_numpy(np.concatenate([[7], h]).astype(np.int32) if unaligned
+                                        else h).to(device)
+                t = base[1:] if unaligned else base
+                got = [int(x) for x in kernels.hist_argmax(t)]
+                want = [int(x) for x in hist_argmax(t)]
+                if got != want:
+                    raise RuntimeError(f"tt_hist_argmax {got} differs from plain {want} on the "
+                                       f"{name!r} histogram, n={n}, unaligned={unaligned}")
+                n_cases += 1
+    log(f"tt_hist_argmax == plain on {n_cases} edge histograms (n = 1, 3, 4097, 2^20; all zeros, "
+        "ties at the ends and spread far apart, a maximum of 2^31 - 1; aligned and unaligned)")
+
+
+def argmax_one_launch(h) -> None:
+    """One ``kernels.hist_argmax`` call launches one kernel: a
+    ``torch.profiler`` trace of the call (its scratch made before)."""
+    import tempfile
+
+    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.utils import device_trace
+
+    kernels.hist_argmax(h)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            kernels.hist_argmax(h)
+            torch.cuda.synchronize()
+        (name,) = os.listdir(tmp)
+        with open(os.path.join(tmp, name)) as f:
+            names = [kernel_name(e["name"]) for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    if len(names) != 1 or "argmax" not in names[0]:
+        raise RuntimeError(f"one hist_argmax call launched {names}, not one argmax kernel")
+    log(f"one hist_argmax call launches one kernel ({names[0]}, torch.profiler)")
 
 
 XPROC_RANKS = 2
@@ -1671,6 +1823,8 @@ def xproc_phase(enc, eng, all_docs, tokens, offsets, fallback_docs: int, words: 
         r = out["rank"]
         if not out["device"].startswith("cuda"):
             raise RuntimeError(f"rank {r} ran on {out['device']}")
+        if table_files(enc._mergeable_ranks) is not None and not out["tables_cached"]:
+            raise RuntimeError(f"rank {r} did not find phase 2's tables in the disk cache")
         if not (np.array_equal(out["lengths"], np.diff(offsets))
                 and np.array_equal(out["flat"], tokens)):
             bad = [i for i in range(len(all_docs)) if out["lengths"][i] != offsets[i + 1] - offsets[i]]
@@ -1713,7 +1867,10 @@ def xproc_phase(enc, eng, all_docs, tokens, offsets, fallback_docs: int, words: 
         f"fallbacks; {n_ranks} processes spawned, run and joined in {spawn_s:.1f} s")
     for out in res:
         log(f"  rank {out['rank']} on {out['device']}: {out['docs']} documents, setup "
-            f"{out['setup_s']:.2f} s (vocabulary, tables, warmup); v3 "
+            f"{out['setup_s']:.2f} s (vocabulary, tables, warmup; the engine's build "
+            f"{out['engine_s']:.3f} s, its tables "
+            + ("from the disk cache" if out["tables_cached"] else "built: the cache is off")
+            + "); v3 "
             f"{out['xproc_v3']['secs']:.3f} / {out['xproc_v3_again']['secs']:.3f} s, host-clock "
             "phases (s): " + "; ".join(", ".join(f"{k}={v:.4f}" for k, v in t.items()) for t in (
                 out["xproc_v3"]["timing"], out["xproc_v3_again"]["timing"]))
@@ -1733,8 +1890,9 @@ def xproc_phase(enc, eng, all_docs, tokens, offsets, fallback_docs: int, words: 
 def xproc_rank(rank: int, n_ranks: int, backend: str, tmp: str, all_docs, word_docs,
                words: str) -> None:
     """One rank of phase 10 (a spawned process): its device made current,
-    the group joined, the bench encoding built (the DFAs from the disk cache
-    that phase 2 filled, the kernels that phase 1 built) and warmed up, then
+    the group joined, the bench encoding built (the DFAs and the hash tables
+    from the disk cache that phase 2 filled, the kernels that phase 1 built)
+    and warmed up, then
     each path with the launch counts set to 0 before it and read after,
     timed from a barrier; the results go to ``tmp``."""
     import pickle
@@ -1754,11 +1912,17 @@ def xproc_rank(rank: int, n_ranks: int, backend: str, tmp: str, all_docs, word_d
     try:
         t0 = time.perf_counter()
         enc = bench_encoding()
+        cached = tables_on_disk(enc._mergeable_ranks)
+        t1 = time.perf_counter()
+        enc.engine(dev)
+        torch.cuda.synchronize(dev)
+        engine_s = time.perf_counter() - t1
         enc.warmup(dev)
         sharded = ShardedEngine(enc.engine(dev), [dev], group=dist.group.WORLD)
         b = document_shares(all_docs, n_ranks)
         out = {"rank": rank, "device": str(sharded.engine.device),
-               "docs": int(b[rank + 1] - b[rank]), "setup_s": time.perf_counter() - t0}
+               "docs": int(b[rank + 1] - b[rank]), "setup_s": time.perf_counter() - t0,
+               "tables_cached": cached, "engine_s": engine_s}
 
         def run(path, fn):
             torch.cuda.synchronize(dev)
@@ -1900,6 +2064,18 @@ def api_phase(enc, all_docs, edge, tokens, offsets, total_bytes: int, card: str,
         log(f"api_v3 (the registry's encoding, strategy='device'): "
             f"{total_bytes / secs / 1e6:.2f} MB/s ({secs:.2f} s); {len(all_docs)} documents "
             f"equal phase 5's ids; {card}")
+
+        # lone surrogates: each encodes as U+FFFD on the device and hybrid routes
+        sur_docs = [d[:20_000] + "\ud800" + d[20_000:40_000] + " \udc00\ud800 \ud83d x"
+                    for d in all_docs[len(edge) : len(edge) + 48]]
+        want_s = [reg.encode_ordinary(d) for d in sur_docs]
+        for strategy in ("device", "hybrid"):
+            if reg.encode_corpus(sur_docs, device="cuda", strategy=strategy) != want_s:
+                raise RuntimeError(f"lone surrogates: strategy={strategy!r} differs from "
+                                   "encode_ordinary")
+        log(f"lone surrogates: {len(sur_docs)} documents of 40 KB, each with four, equal "
+            f"encode_ordinary on strategy='device' and 'hybrid' (its device worker took "
+            f"{reg.corpus_report['docs']['device']} of them)")
 
         def ids(i):
             return tokens[offsets[i] : offsets[i + 1]]

@@ -5,7 +5,9 @@
 //   read's index (no index array), 8 a thread issued together: the floor of
 //   tt_grid_merge's pair probes, which random L2 requests bound;
 // - atomics_only: one atomicAdd a precomputed bin into a histogram: the
-//   floor of tt_pair_hist's adds.
+//   floor of tt_pair_hist's adds;
+// - empty_launch: one block of 32 threads that does nothing: the floor of a
+//   one-launch kernel such as tt_hist_argmax, timed back to back.
 // Built by chip_smoke.floor_lib() with nvcc for sm_90a.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,6 +57,8 @@ __global__ void atomics_kernel(const int4* __restrict__ bins, long long n4,
   }
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // buckets: rows_pow2 rows of 128 bytes (16-byte aligned); loads 1 or 2
@@ -76,5 +80,10 @@ extern "C" int atomics_only(const void* bins, long long n4, void* hist, void* st
   if (e != cudaSuccess) return static_cast<int>(e);
   atomics_kernel<<<sms * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(bins), n4, static_cast<int*>(hist));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

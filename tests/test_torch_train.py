@@ -3,7 +3,9 @@
 The plain ``pair_hash`` against the JAX ``_pair_hash``; the port's
 ``corpus_pair_counts`` over 1-, 2- and 3-way CPU splits against the JAX
 ``corpus_pair_counts`` on the virtual CPU mesh (exact: hist, best_bin,
-best_count); the first bin of a tie; a two-process gloo all-reduce against
+best_count); the first bin of a tie; the plain argmax against
+``jnp.argmax`` on ``tt_hist_argmax``'s edge histograms, with the kernel's
+block-key design in numpy; a two-process gloo all-reduce against
 one process over all the rows; ``train_bpe`` against the JAX
 ``train_bpe``."""
 
@@ -104,6 +106,52 @@ def test_tie_takes_the_first_bin():
                                                     np.zeros((1, 8), bool), hist_bits=12)
     top = np.nonzero(hist == hist.max())[0]
     assert len(top) > 1 and best_bin == top[0] and best_count == hist.max()
+
+
+def edge_hist(case: str, n: int) -> np.ndarray:
+    """An edge histogram of ``tt_hist_argmax`` (``chip_smoke.argmax_edges``
+    builds the same on the card): all zeros, the maximum tied at the first
+    and the last bin, a tie spread over bins far apart (different blocks at
+    2^20), one maximum of 2^31 - 1."""
+    if case == "zeros":
+        return np.zeros(n, np.int32)
+    h = np.random.default_rng(n).integers(0, 50, n).astype(np.int32)
+    if case == "ends":
+        h[[0, -1]] = 99
+    elif case == "spread":
+        h[np.linspace(n // 7, n - 1, 5).astype(np.int64)] = 99
+    else:
+        h[n // 2] = np.iinfo(np.int32).max
+    return h
+
+
+def blocks_argmax(h: np.ndarray, blocks: int) -> tuple[int, int]:
+    """The kernel's design in numpy: each bin's 64-bit key (the count with
+    its sign bit flipped, then the inverted bin), the maximum key of each of
+    ``blocks`` spans, then the maximum of those, decoded."""
+    keys = (((h.view(np.uint32).astype(np.uint64) ^ np.uint64(0x80000000)) << np.uint64(32))
+            | (~np.arange(len(h), dtype=np.uint32)).astype(np.uint64))
+    best = max(int(part.max()) for part in np.array_split(keys, blocks) if len(part))
+    count = np.uint32((best >> 32) ^ 0x80000000).view(np.int32)
+    return (~best) & 0xFFFFFFFF, int(count)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4097, 1 << 20])
+@pytest.mark.parametrize("case", ["zeros", "ends", "spread", "max_int"])
+def test_hist_argmax_edges_match_jax(case, n):
+    """The plain ``hist_argmax`` against ``jnp.argmax`` on the kernel's edge
+    cases, whole and as an unaligned view (``base[1:]``), and the kernel's
+    block-key design over 1, 7 and 256 blocks."""
+    from tiktoken_tpu_torch.ops.pair_count import hist_argmax
+
+    h = edge_hist(case, n)
+    best = int(jnp.argmax(jnp.asarray(h)))
+    want = (best, int(h[best]))
+    base = torch.from_numpy(np.concatenate([[7], h]).astype(np.int32))
+    for t in (torch.from_numpy(h), base[1:]):
+        assert tuple(int(x) for x in hist_argmax(t)) == want
+    for blocks in (1, 7, 256):
+        assert blocks_argmax(h, blocks) == want
 
 
 def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:

@@ -40,6 +40,8 @@ import numpy as np
 import torch
 
 from tiktoken_tpu_torch._pybpe import HostBPE
+from tiktoken_tpu_torch._utf8 import fix_surrogates as _fix_surrogates
+from tiktoken_tpu_torch._utf8 import utf8_bytes
 from tiktoken_tpu_torch.ops.engine import (
     DEFAULT_CHUNK_ROWS,
     DEFAULT_ROW,
@@ -59,11 +61,6 @@ def _host_text(t) -> str:
     """A document as the host encoder takes it: a str, bytes decoded as
     strict UTF-8 (as the device path's host fallback decodes them)."""
     return t if isinstance(t, str) else bytes(t).decode("utf-8")
-
-
-def _fix_surrogates(text: str) -> str:
-    """Lone surrogates become U+FFFD, as in the reference."""
-    return text.encode("utf-16", "surrogatepass").decode("utf-16", "replace")
 
 
 def _grab_size(t) -> int:
@@ -170,11 +167,7 @@ class Encoding:
         if core is not None and not (
                 allowed_special
                 and _special_token_regex(frozenset(allowed_special)).search(text)):
-            try:
-                data = text.encode("utf-8")
-            except UnicodeEncodeError:
-                data = _fix_surrogates(text).encode("utf-8")
-            return core.encode_ordinary_numpy(data)
+            return core.encode_ordinary_numpy(utf8_bytes(text))
         return np.asarray(self.encode(text, allowed_special=allowed_special,
                                       disallowed_special=()), dtype=np.uint32)
 

@@ -28,9 +28,31 @@
 // after it when its own look-back ends), so rows of any length take no
 // per-row pass. A pair counts when the next alive position lies in the
 // same row and does not start a piece; its bin of the zeroed histogram
-// takes one atomicAdd. The argmax is a two-stage maximum over 64-bit keys
-// (count, ~bin): the larger count wins, then the smaller bin, as
-// jnp.argmax takes the first index of the maximum.
+// takes one atomicAdd.
+//
+// The argmax (tt_hist_argmax, jnp.argmax of parallel/train.py:82 in the
+// JAX package) reads the 2^20-bin histogram once: 4 MB, 1.25 us at
+// 3.35 TB/s, so a call is as long as its launch and its serial tail. One
+// launch: each block reduces its span of the histogram, read as 16-byte
+// vectors with four loads in flight a thread (a scalar head where the
+// histogram does not start on 16 bytes, a scalar tail for the last n % 4
+// bins), to one 64-bit key (count, ~bin) whose maximum is the first bin of
+// the largest count, as jnp.argmax takes the first index of the maximum;
+// by warp shuffles, then across the warps in shared memory. The grid is
+// sized from the SM count and the kernel's occupancy, queried once per
+// device. Each block folds its key into one running maximum (atomicMax)
+// and takes a ticket with one acquire-release atomic; the last block to
+// arrive reads and resets the maximum in one exchange, writes (bin, count)
+// and sets the ticket back to 0, so no call needs a memset. That tail
+// replaced a key a block that the last block reduced after two fences:
+// 0.0054 -> 0.0045 ms on an H100 SXM at 700 W, where the same kernel with
+// no tail at all takes 0.0038 and an empty launch 0.0017
+// (scripts/argmax_times.py; PERF.md).
+
+#include <algorithm>
+#include <mutex>
+
+#include <cuda/atomic>
 
 #include "common.cuh"
 
@@ -167,25 +189,75 @@ __device__ __forceinline__ unsigned long long block_max(unsigned long long v) {
   return v;  // valid in thread 0
 }
 
-__global__ void argmax_partial_kernel(const int* __restrict__ hist, int n,
-                                      unsigned long long* __restrict__ partial) {
-  unsigned long long best = 0;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * blockDim.x)
-    best = max(best, arg_key(hist[i], static_cast<unsigned>(i)));
-  best = block_max(best);
-  if (threadIdx.x == 0) partial[blockIdx.x] = best;
-}
+constexpr int ARG_TPB = 256;  // threads per argmax block
+constexpr int ARG_VPT = 4;    // 16-byte loads in flight a thread
 
-__global__ void argmax_final_kernel(const unsigned long long* __restrict__ partial, int G,
-                                    int* __restrict__ out) {
+// hist [n] i32 -> out = (first bin of the maximum, its count). Bins [0,
+// head) and the last (n - head) % 4 are read one by one, the rest as int4.
+// best (the running maximum) and ticket: 0 at entry, 0 again at exit.
+__global__ void __launch_bounds__(ARG_TPB) argmax_kernel(
+    const int* __restrict__ hist, int n, int head, unsigned long long* __restrict__ best_key,
+    unsigned* __restrict__ ticket, int* __restrict__ out) {
+  const long long n4 = (n - head) / 4;
+  const int4* h4 = reinterpret_cast<const int4*>(hist + head);
+  const long long tid = static_cast<long long>(blockIdx.x) * ARG_TPB + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * ARG_TPB;
   unsigned long long best = 0;
-  for (int i = threadIdx.x; i < G; i += blockDim.x) best = max(best, partial[i]);
+  for (long long i = tid; i < n4; i += ARG_VPT * stride) {
+    int4 q[ARG_VPT];
+#pragma unroll
+    for (int k = 0; k < ARG_VPT; ++k)
+      q[k] = i + k * stride < n4 ? __ldcs(h4 + i + k * stride) : make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int k = 0; k < ARG_VPT; ++k) {
+      if (i + k * stride >= n4) break;
+      const unsigned b = static_cast<unsigned>(head + 4 * (i + k * stride));
+      best = max(best, max(max(arg_key(q[k].x, b), arg_key(q[k].y, b + 1)),
+                           max(arg_key(q[k].z, b + 2), arg_key(q[k].w, b + 3))));
+    }
+  }
+  const long long tail = head + 4 * n4;
+  if (tid < head) best = max(best, arg_key(hist[tid], static_cast<unsigned>(tid)));
+  if (tid < n - tail)
+    best = max(best, arg_key(hist[tail + tid], static_cast<unsigned>(tail + tid)));
   best = block_max(best);
   if (threadIdx.x == 0) {
-    out[0] = static_cast<int>(~static_cast<unsigned>(best & 0xffffffffu));
-    out[1] = static_cast<int>(static_cast<unsigned>(best >> 32) ^ 0x80000000u);
+    atomicMax(best_key, best);
+    // release: this block's atomicMax is seen by whoever takes a later
+    // ticket; acquire: the last block sees every block's
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> t(*ticket);
+    if (t.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1) {
+      cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> k(*best_key);
+      const unsigned long long b = k.exchange(0ull, cuda::memory_order_relaxed);
+      out[0] = static_cast<int>(~static_cast<unsigned>(b & 0xffffffffu));
+      out[1] = static_cast<int>(static_cast<unsigned>(b >> 32) ^ 0x80000000u);
+      t.store(0u, cuda::memory_order_relaxed);  // for the next call on this stream
+    }
   }
+}
+
+// The resident argmax blocks of the current device (SMs x blocks per SM),
+// queried once per device.
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t argmax_resident(int* out) {
+  static std::mutex mu;
+  static int cache[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (cache[dev] == 0) {
+    int sms = 0, per = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, argmax_kernel,
+                                                                          ARG_TPB, 0);
+    if (e != cudaSuccess) return e;
+    cache[dev] = std::max(1, sms * per);
+  }
+  *out = cache[dev];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -227,14 +299,24 @@ extern "C" int tt_pair_hist(const void* tokens, const void* alive, const void* p
   return static_cast<int>(cudaGetLastError());
 }
 
-// hist [n] i32 (n >= 1) -> out [2] i32 = (first bin of the maximum, its
-// count); partial: G uint64, 1 <= G <= 1024 blocks of the first stage
-extern "C" int tt_hist_argmax(const void* hist, int n, int G, void* partial, void* out,
-                              void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  argmax_partial_kernel<<<G, 256, 0, s>>>(static_cast<const int*>(hist), n,
-                                          static_cast<unsigned long long*>(partial));
-  argmax_final_kernel<<<1, 1024, 0, s>>>(static_cast<const unsigned long long*>(partial), G,
-                                         static_cast<int*>(out));
+// hist [n] i32 (n >= 1, 4-byte aligned) -> out [2] i32 = (first bin of the
+// maximum, its count); scratch: 4 int32, 16-byte aligned, zero (as every
+// call leaves them): the ticket (word 0) and the running maximum (words
+// 2-3). One launch.
+extern "C" int tt_hist_argmax(const void* hist, int n, void* scratch, void* out, void* stream) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(hist);
+  if (n < 1 || (at & 3) || (reinterpret_cast<uintptr_t>(scratch) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int resident = 0;
+  cudaError_t e = argmax_resident(&resident);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int head = std::min(n, static_cast<int>(((16 - (at & 15)) & 15) / 4));
+  const long long per_block = ARG_TPB * ARG_VPT;
+  const long long blocks = ((n - head) / 4 + per_block - 1) / per_block;
+  const int G = static_cast<int>(std::max(1ll, std::min<long long>(blocks, resident)));
+  int* words = static_cast<int*>(scratch);
+  argmax_kernel<<<G, ARG_TPB, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(hist), n, head, reinterpret_cast<unsigned long long*>(words + 2),
+      reinterpret_cast<unsigned*>(words), static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,8 @@ import uuid
 
 import numpy as np
 
+from tiktoken_tpu_torch._utf8 import utf8_bytes
+
 CXX = "g++"
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "core.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
@@ -228,7 +230,7 @@ class NativeCore:
         """Encode ``texts`` in one C call over ``num_threads`` threads:
         ``(tokens, offsets)``, document ``i``'s ids being
         ``tokens[offsets[i]:offsets[i+1]]`` (uint32 / int64)."""
-        datas = [t.encode("utf-8") for t in texts]
+        datas = [utf8_bytes(t) for t in texts]
         n = len(datas)
         if n == 0:
             return np.empty(0, np.uint32), np.zeros(1, np.int64)

@@ -17,10 +17,12 @@ on two of its paths:
 
 The engine builds the tables once and uploads them to its device once,
 from the pattern's DFAs as ``ops/artifacts`` keeps them (compiled once per
-process, cached on disk); the v3 rows are cut by the native host core's
-cutter. The byte-level scan table is uploaded only when a call first needs
-it (the byte scanner, or a v1 re-run), so the v3 path and a v2 call that
-never overflows never pay for it. Both paths stitch the per-row token streams
+process, cached on disk) and from the vocabulary's pair, short-vocab and
+long-vocab hash tables (built once per machine, cached on disk the same
+way, keyed by a sha256 of the ranks); the v3 rows are cut by the native
+host core's cutter. The byte-level scan table is uploaded only when a call
+first needs it (the byte scanner, or a v1 re-run), so the v3 path and a v2
+call that never overflows never pay for it. Both paths stitch the per-row token streams
 back into documents and hand documents the device could not finish
 exactly (``row_bad`` rows: handshake failures or unresolved scans,
 pieces over 64 bytes, v2 hard cuts) to the host engine. Those fallbacks
@@ -35,6 +37,7 @@ in ``parallel.ShardedEngine``.
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import time
 import warnings
@@ -44,7 +47,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tiktoken_tpu_torch.ops import kernels
+from tiktoken_tpu_torch._utf8 import utf8_bytes
+from tiktoken_tpu_torch.ops import artifacts, kernels
 from tiktoken_tpu_torch.ops.artifacts import cached_char_class_tables, cached_scanner_dfa
 from tiktoken_tpu_torch.ops.pair_table import PairTable, build_pair_table
 from tiktoken_tpu_torch.ops.pieces import (
@@ -225,10 +229,72 @@ def host_tables(pat_str: str, mergeable_ranks: dict[bytes, int]):
             "use the host path for this vocabulary"
         )
     char = cached_char_class_tables(pat_str)
-    pair = build_pair_table(mergeable_ranks)
-    vocab = build_vocab_table(mergeable_ranks)
-    long = build_long_vocab_table(mergeable_ranks)
+    fp = _pair_table_fingerprint(mergeable_ranks)
+    pair = _cached_pair_table(mergeable_ranks, fp)
+    vocab = _cached_vocab_table(mergeable_ranks, fp)
+    long = _cached_long_vocab_table(mergeable_ranks, fp)
     return char, pair, vocab, long
+
+
+# The three hash tables of a vocabulary, built once per machine: stored as
+# artifacts (ops/artifacts.py) keyed by a sha256 of the ranks, as the JAX
+# package keeps them (its ops/engine.py, same names; here each takes the
+# fingerprint, computed once for the three), under the port's own directory
+# and compiler version. A file that fails to load is removed and the table
+# built and stored again; with the cache off, or a directory that cannot be
+# written, every build builds.
+
+
+def _pair_table_fingerprint(mergeable_ranks: dict[bytes, int]) -> bytes:
+    """sha256 over the tokens in rank order, each followed by its rank as
+    4 little-endian bytes."""
+    h = hashlib.sha256()
+    for token, rank in sorted(mergeable_ranks.items(), key=lambda kv: kv[1]):
+        h.update(token)
+        h.update(rank.to_bytes(4, "little"))
+    return h.digest()
+
+
+def _cached_pair_table(mergeable_ranks: dict[bytes, int], fingerprint: bytes) -> PairTable:
+    key = artifacts.artifact_key("pair-table", fingerprint)
+    arrays = artifacts.load_arrays(key)
+    if arrays is not None:
+        meta = arrays["meta"]
+        return PairTable(buckets=arrays["buckets"], n_buckets=int(arrays["buckets"].shape[0]),
+                         seed=int(meta[0]), n_pairs=int(meta[1]),
+                         byte_to_rank=arrays["byte_to_rank"], n_vocab=int(meta[2]))
+    pt = build_pair_table(mergeable_ranks)
+    artifacts.store_arrays(key, {
+        "buckets": pt.buckets, "byte_to_rank": pt.byte_to_rank,
+        "meta": np.asarray([pt.seed, pt.n_pairs, pt.n_vocab], dtype=np.int64)})
+    return pt
+
+
+def _cached_vocab_table(mergeable_ranks: dict[bytes, int],
+                        fingerprint: bytes) -> VocabTable:
+    key = artifacts.artifact_key("vocab-table", fingerprint)
+    arrays = artifacts.load_arrays(key)
+    if arrays is not None:
+        return VocabTable(buckets=arrays["buckets"], n_buckets=int(arrays["buckets"].shape[0]),
+                          seed=int(arrays["meta"][0]), n_short=int(arrays["meta"][1]))
+    vt = build_vocab_table(mergeable_ranks)
+    artifacts.store_arrays(key, {"buckets": vt.buckets,
+                                 "meta": np.asarray([vt.seed, vt.n_short], dtype=np.int64)})
+    return vt
+
+
+def _cached_long_vocab_table(mergeable_ranks: dict[bytes, int],
+                             fingerprint: bytes) -> LongVocabTable:
+    key = artifacts.artifact_key("long-vocab-table", fingerprint)
+    arrays = artifacts.load_arrays(key)
+    if arrays is not None:
+        return LongVocabTable(buckets=arrays["buckets"],
+                              n_buckets=int(arrays["buckets"].shape[0]),
+                              seed=int(arrays["meta"][0]), n_long=int(arrays["meta"][1]))
+    lvt = build_long_vocab_table(mergeable_ranks)
+    artifacts.store_arrays(key, {"buckets": lvt.buckets,
+                                 "meta": np.asarray([lvt.seed, lvt.n_long], dtype=np.int64)})
+    return lvt
 
 
 def _vocab_readiness(mergeable_ranks: dict[bytes, int], pt: PairTable,
@@ -421,7 +487,7 @@ def encode_corpus3_on(engines: Sequence["TorchEngine"], texts, host_fallback, K,
                       "(scan cost grows with row length)", stacklevel=4)
     K = min(K or K_DEFAULT, MAX_K)
     texts = list(texts)
-    docs = [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in texts]
+    docs = [utf8_bytes(t) for t in texts]
     timing.clear()
     t0 = time.perf_counter()
     pc = pack_corpus3(docs, K, utf8=[isinstance(t, str) for t in texts])
@@ -438,7 +504,7 @@ def encode_corpus2_on(engines: Sequence["TorchEngine"], texts, host_fallback, ro
     """The v2 corpus encoder over ``engines``: ``pack_documents``,
     ``resolve_chunks2`` with ``scanner``, ``assemble``; ``timing`` is
     refilled for this call."""
-    docs = [t.encode("utf-8") if isinstance(t, str) else bytes(t) for t in texts]
+    docs = [utf8_bytes(t) for t in texts]
     timing.clear()
     t0 = time.perf_counter()
     batch = pack_documents(docs, row_capacity or DEFAULT_ROW)

@@ -130,7 +130,7 @@ _SIGNATURES = {
     },
     "pair_count": {
         "tt_pair_hist": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-        "tt_hist_argmax": [_P, _I, _I, _P, _P, _P],
+        "tt_hist_argmax": [_P, _I, _P, _P, _P],
         "tt_pair_scratch_words": [_I, _I],
     },
 }
@@ -682,7 +682,13 @@ def grid_merge(buckets, byte_to_rank, rows, piece_start, n_payload, seed: int):
 # pair_count
 # ---------------------------------------------------------------------------
 
-ARGMAX_ITEMS_PER_BLOCK = 2048  # first-stage histogram bins per block of tt_hist_argmax
+# tt_hist_argmax's scratch by (device, stream): 4 int32 words, the ticket
+# that elects the last block to arrive and the blocks' running maximum,
+# zeroed once when made; each call's last block sets both back to 0, so no
+# call pays a memset. It is kept per stream because two calls in flight on
+# two streams must never share a ticket: their blocks would count as one
+# grid's, and one call would read the other's maximum.
+_argmax_scratch: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
 def pair_hist(tokens, alive, piece_start, bits: int):
@@ -715,11 +721,15 @@ def hist_argmax(hist):
     (n,) = hist.shape
     if n == 0:
         raise ValueError("hist_argmax of an empty histogram")
-    blocks = min(1024, -(-n // ARGMAX_ITEMS_PER_BLOCK))
-    partial = torch.empty(blocks, dtype=torch.int64, device=dev)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    scratch = _argmax_scratch.get(key)
+    if scratch is None:
+        scratch = _argmax_scratch[key] = torch.zeros(4, dtype=torch.int32, device=dev)
     out = torch.empty(2, dtype=torch.int32, device=dev)
+    # a launch that the entry point reports failed never ran: the scratch
+    # stays zero for the next call
     _call("pair_count", "tt_hist_argmax", dev, _check("hist", hist, torch.int32, (n,), dev), n,
-          blocks, partial.data_ptr(), out.data_ptr())
+          scratch.data_ptr(), out.data_ptr())
     return out[0], out[1]
 
 

@@ -28,6 +28,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
+from tiktoken_tpu_torch._utf8 import utf8_bytes
+
 
 def _iter_shards(docs: Iterable, shard_docs: int) -> Iterator[list]:
     buf: list = []
@@ -86,8 +88,7 @@ class StreamEncoder:
             for i, shard in enumerate(_iter_shards(docs, self.shard_docs)):
                 totals["shards"] += 1
                 totals["documents"] += len(shard)
-                nbytes = sum(len(d.encode("utf-8")) if isinstance(d, str) else len(d)
-                             for d in shard)
+                nbytes = sum(len(utf8_bytes(d)) for d in shard)
                 totals["bytes"] += nbytes
                 if i in self._done:
                     totals["resumed"] += 1
