@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 
-1. the card's name and power limit; the build of the seven CUDA kernels;
+1. the card's name and power limit; the build of the seven CUDA kernels,
+   none of whose libraries may export an entry point that a redesign took
+   out (``GONE_ENTRIES``);
 2. the bench vocabulary (assets/bench_vocab2_100000.tiktoken, 100,000
    ranks) with the o200k split pattern, its tables built and uploaded:
    the pair, short-vocab and long-vocab tables through the disk cache
@@ -22,7 +24,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    the live slots and their tokens below each count, the rest being left
    unwritten), timed with CUDA events;
    then the whole chunk program with the kernels and with the plain
-   versions, and every entry point again on the edge documents' chunks
+   versions (one call of it traced in phase 9b), and every entry point
+   again on the edge documents' chunks
    (over the non-ASCII cap, in both cap variants); the scan's walk
    steps per row (the plain walk's count), its time at 32-256 rows per
    block, and the cycles of one dependent walk step with the latency
@@ -38,7 +41,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    (its rows per block, and its time with no hot rows in shared memory);
    the edge documents' chunk, over the cap, entry
    point by entry point, and through the v1 program (pieces of the whole
-   row); ``tt_grid_merge`` against plain on a chunk of pieces at each of
+   row, over the window scan's u_cap); the v1 program on the chunk's first
+   128 rows (the sharded v2's re-run size), entry point by entry point
+   (one call of each program traced in phase 9b);
+   ``tt_grid_merge`` against plain on a chunk of pieces at each of
    its length-class boundaries (1 to 256 bytes) with rows of no payload,
    and its time beside its probe floor (as many reads as the chunk makes
    probes, one 16-byte load each, at hashed random rows of the pair table:
@@ -111,7 +117,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    call gives the device busy share (the union of the kernels' intervals
    over the call's wall time) and the five kernels with the most device
    time; ``encode_batch`` against ``encode_ordinary_batch`` MB/s and
-   ``engine_report``.
+   ``engine_report``;
+9b. three calls of each chunk program of phases 4 and 4b (v3; v2 under
+   both scanners; v1) traced with ``torch.profiler``: every CUDA kernel in
+   the trace must be the package's (no PyTorch op runs between the
+   kernels; PyTorch's ``at::`` kernels read 0 ms), and the trace must hold
+   every kernel the host launched in it but the last (a session records
+   all but its last kernel), so each call's kernels are seen in the first
+   two calls whole. It runs after phase 8's
+   one-kernel argmax trace: run before it, in phases 4 and 4b, these
+   traces left that one empty.
 10. the sharded engine across processes: ``ShardedEngine(..., group=)``
    over a one-rank NCCL group in this process (path ``xproc_nccl1``, phase
    5's corpus), then two spawned ranks (a ``FileStore`` in a temporary
@@ -135,9 +150,9 @@ Each main-path call (phases 5, 5b, 5c's hybrid call, 7, 8, 9 and 10; in
 phase 10 each rank's own) sets the launch counts to 0
 just before it and reads them just after, and fails if a kernel of its
 path was not launched, if a path that merges did not launch
-``tt_slot_merge_packed`` and ``tt_piece_counts``, or if any path launched
-an entry point that the slot merge's redesign took out
-(``tt_compact_rows``, ``tt_route``).
+``tt_slot_merge_packed`` and ``tt_assemble``, or if any path launched
+an entry point that a redesign took out (``GONE_ENTRIES``); phase 1
+fails if a built kernel library still exports one.
 
 Before the last line it prints the card line and one JSON ``kernels``
 line; the last line is ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -150,10 +165,12 @@ import ctypes
 import json
 import os
 import random
+import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -166,10 +183,10 @@ KERNEL_OF = {
     "pair_hist": "pair_count", "hist_argmax": "pair_count",
     "scan_rows": "scan_rows", "scan_validate": "scan_rows", "char_scan": "scan_rows",
     "catalog": "compaction", "compact_kinds": "compaction", "catalog2": "compaction",
-    "extract_slots": "compaction", "expand_tokens_rows": "compaction",
+    "extract_slots": "compaction", "assemble": "compaction",
     "vocab_hit": "vocab_hit", "long_vocab_hit": "vocab_hit",
-    "slot_merge_packed": "slot_merge", "piece_counts": "slot_merge",
-    "seq_scan": "byte_scan", "window_scan": "byte_scan", "orbit": "byte_scan",
+    "slot_merge_packed": "slot_merge",
+    "seq_scan": "byte_scan", "window_orbit": "byte_scan",
     "grid_merge": "grid_merge",
 }
 REPLACES = {
@@ -178,12 +195,13 @@ REPLACES = {
                  "tiktoken_tpu/ops/pipeline2.py:86",
     "compaction": "tiktoken_tpu/ops/compaction.py:78; tiktoken_tpu/ops/compaction.py:164; "
                   "tiktoken_tpu/ops/pieces.py:288; tiktoken_tpu/ops/pieces.py:317; "
-                  "tiktoken_tpu/ops/pipeline2.py:104",
+                  "tiktoken_tpu/ops/pipeline2.py:104; tiktoken_tpu/ops/pipeline3.py:351; "
+                  "tiktoken_tpu/ops/pipeline3.py:584; tiktoken_tpu/ops/pipeline3.py:644; "
+                  "tiktoken_tpu/ops/pipeline2.py:212",
     "vocab_hit": "tiktoken_tpu/ops/pieces.py:354; tiktoken_tpu/ops/pieces.py:205",
-    "slot_merge": "tiktoken_tpu/ops/slot_merge.py:62; tiktoken_tpu/ops/pipeline3.py:327; "
-                  "tiktoken_tpu/ops/pipeline3.py:553; tiktoken_tpu/ops/pipeline2.py:104",
+    "slot_merge": "tiktoken_tpu/ops/slot_merge.py:62; tiktoken_tpu/ops/pipeline3.py:553",
     "byte_scan": "tiktoken_tpu/ops/window_scan.py:287; tiktoken_tpu/ops/window_scan.py:118; "
-                 "tiktoken_tpu/ops/window_scan.py:197",
+                 "tiktoken_tpu/ops/window_scan.py:197; tiktoken_tpu/ops/engine.py:268",
     "grid_merge": "tiktoken_tpu/ops/merge.py:116; tiktoken_tpu/ops/engine.py:281",
     "pair_count": "tiktoken_tpu/parallel/train.py:60; tiktoken_tpu/parallel/train.py:28",
 }
@@ -197,20 +215,22 @@ JAX_FUNCTIONS = {
                    "pipeline3 slot prefix sums and token fetch",
                    "pipeline3 / pipeline2 short-miss and long masks and compactions",
                    "pieces.make_catalog_fn", "pieces.make_extract_fn",
-                   "pipeline2 extract_long", "pipeline3 / pipeline2 assembly and row counts"],
+                   "pipeline2 / pipeline3 extract_long",
+                   "pipeline3 / pipeline2 single, count and combo selects, route_right of the "
+                   "slot counts, assembly, row counts, overflow rule and header"],
     "vocab_hit": ["pieces.make_vocab_hit_fn", "pieces.make_long_vocab_hit_fn"],
     "slot_merge": ["slot_merge.make_slot_merge_fn(W=16)", "slot_merge.make_slot_merge_fn(W=64)",
                    "pipeline3 / pipeline2 row-wise compaction of the merged slots and the long "
-                   "hits' lane-0 select", "pipeline3.route_right of the slot counts",
-                   "pipeline3 / pipeline2 single, count and combo selects"],
+                   "hits' lane-0 select"],
     "byte_scan": ["window_scan.make_seq_scan_fn", "window_scan.make_window_scan_fn",
-                  "window_scan.make_orbit_fn"],
+                  "window_scan.make_orbit_fn", "engine.build_pipeline_fn row flags"],
     "grid_merge": ["merge.make_merge_fn", "engine.build_pipeline_fn row assembly"],
     "pair_count": ["parallel.train.make_pair_count_step.per_shard", "parallel.train._pair_hash"],
 }
-# entry points that the slot merge's redesign took out: no chunk program
-# may launch them
-GONE_ENTRIES = ("tt_compact_rows", "tt_route", "tt_slot_merge", "tt_expand_tokens")
+# entry points that redesigns took out: no path may launch them, and no
+# built kernel library may export them
+GONE_ENTRIES = ("tt_compact_rows", "tt_route", "tt_slot_merge", "tt_expand_tokens",
+                "tt_expand_tokens_rows", "tt_piece_counts", "tt_window_scan", "tt_orbit")
 # which kernels each path must launch
 PATH_KERNELS = {
     "v3": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
@@ -476,7 +496,7 @@ def recording_ops(kernel_ops, calls: list):
 
         return call
 
-    return SimpleNamespace(**{name: wrap(name) for name in KERNEL_OF})
+    return SimpleNamespace(**{name: wrap(name) for name in vars(kernel_ops)})
 
 
 def touched(valid: torch.Tensor, elem_bytes: int) -> int:
@@ -497,8 +517,7 @@ def work_of(name, args, kwargs, out) -> tuple[int, int]:
     entries, in 32-byte sectors; a table only the rows this data probes),
     each output written once. The two scan_rows entry points count as one
     function: the mask, spec_f and row_bad that pass from the first to
-    the second are written once and read by neither. So do window_scan
-    and orbit: hop and unresolved are neither written nor read."""
+    the second are written once and read by neither."""
     outs = flatten(out)
     if name == "scan_rows":
         t, flat, row_off, n_payload, n_total, is_doc_end = args
@@ -509,12 +528,12 @@ def work_of(name, args, kwargs, out) -> tuple[int, int]:
         ops = C * KL + int(n_payload.clamp(min=0).sum())  # classify + >= 1 step per byte
     elif name == "char_scan":
         # the rows and two row vectors in, the tables once; the mask,
-        # row_bad and one na_over flag per row out
+        # row_bad and the non-ASCII flag out
         t, rows, n_payload, n_total = args
         mask, row_bad = outs[:2]
         C, KL = rows.shape
         moved = nbytes([rows, n_payload, n_total, t.page_entry, t.mixed_rows, t.consts, mask,
-                        row_bad]) + C
+                        row_bad]) + 1
         ops = C * KL + int(n_payload.clamp(min=0).sum())  # classify + >= 1 step per byte
     elif name == "scan_validate":
         prev_same_doc, emit = args[4], args[5]
@@ -540,8 +559,10 @@ def work_of(name, args, kwargs, out) -> tuple[int, int]:
                  + nbytes(outs))
         ops = lens.numel()
     elif name in ("vocab_hit", "long_vocab_hit"):
+        # the pieces whose length the table holds probe it: 1-16 bytes, or
+        # 17-64 for the long table
         buckets, words, lens = args[:3]
-        live = lens > 0
+        live = (lens > 0) & (lens <= 16) if name == "vocab_hit" else (lens > 16) & (lens <= 64)
         row = buckets.shape[1] * 4
         moved = (touched(live, words[0].numel() * words.element_size()) + lens.nbytes
                  + nbytes(outs) + min(int(live.sum()) * row, buckets.nbytes))
@@ -563,18 +584,26 @@ def work_of(name, args, kwargs, out) -> tuple[int, int]:
                  + b2r.nbytes + touched(real, 4) + 4 * int(cnt.sum())
                  + min(probes * 128, buckets.nbytes))
         ops = probes * 8
-    elif name == "piece_counts":
-        # the live pieces' lengths, hits and slots, the first word of the
-        # one-byte pieces and the merged slots' counts in; counts and combos
-        # of the live pieces out
-        n_pieces, lens, _hit, words, b2r, mslot, lslot, m_count, l_count = args
+    elif name == "assemble":
+        # the live pieces' lengths and hits, the slots of those that are not
+        # singles, the first word of the one-byte pieces, the merged slots'
+        # counts and tokens that the stream takes, the starts of the pieces
+        # with tokens, row_bad and the counts in; the stream and header out
+        from tiktoken_tpu_torch.ops.compaction import piece_counts
+
+        n_pieces, lens, hit, words, b2r, mslot, lslot, m_count, l_count = args[:9]
+        row_bad = args[12]
         p = lens.shape[0]
         live = torch.arange(p, device=lens.device) < min(int(n_pieces), p)
-        one = live & (lens == 1)
-        moved = (4 * touched(live, 4) + touched(one, 16) + b2r.nbytes
-                 + 4 * int((live & (mslot >= 0)).sum() + (live & (lslot >= 0)).sum())
-                 + 2 * touched(live, 4))
-        ops = int(live.sum())
+        counts, combo = piece_counts(*args[:9])
+        single = live & ((lens == 1) | ((lens >= 2) & (lens <= 16) & (hit != -1)))
+        merged = live & ~single
+        fetched = int(counts[merged].sum())
+        moved = (2 * touched(live, 4) + touched(live & (lens == 1), 16) + b2r.nbytes
+                 + touched(merged, 4) + touched(merged & (mslot < 0), 4)
+                 + 4 * int((merged & ((mslot >= 0) | (lslot >= 0))).sum()) + 4 * fetched
+                 + touched(live & (counts > 0), 4) + row_bad.nbytes + 16 + nbytes(outs))
+        ops = 2 * int(live.sum()) + int(counts.sum())
     elif name == "seq_scan":
         packed, rows, n_payload, n_total = args
         mask, _ = outs
@@ -583,19 +612,19 @@ def work_of(name, args, kwargs, out) -> tuple[int, int]:
         moved = (read + nbytes([n_payload, n_total]) + nbytes(outs)
                  + min(steps * 32, packed.nbytes))
         ops = steps
-    elif name == "window_scan":
-        # counted with orbit as one function: hop and unresolved pass from
-        # one entry to the other and are neither written nor read here
-        packed, rows, n_total = args
-        hop, _ = outs
-        steps = int(hop.clamp(min=1).sum())  # each position scans at least to its match end
+    elif name == "window_orbit":
+        # each row's bytes to its scan end, n_payload and n_total in, the
+        # table rows the walks read (each position walks at least to its
+        # match end, one 32-byte sector a step); the mask and row_bad out
+        from tiktoken_tpu_torch.ops.window_scan import window_scan
+
+        packed, rows, n_payload, n_total = args
+        hop, _ = window_scan(packed, rows, n_total, K=kwargs["K"], window=kwargs["window"])
+        steps = int(hop.clamp(min=1).sum())
         read = int(n_total.clamp(0, rows.shape[1]).sum())
-        moved = read + n_total.nbytes + min(steps * 32, packed.nbytes)
+        moved = (read + n_payload.nbytes + n_total.nbytes + min(steps * 32, packed.nbytes)
+                 + nbytes(outs))
         ops = steps
-    elif name == "orbit":
-        mask, _ = outs
-        moved = args[2].nbytes + nbytes(outs)
-        ops = int(mask.sum())
     elif name == "grid_merge":
         buckets, b2r, rows, piece_start, n_payload = args[:5]
         _, counts, _ = out
@@ -618,11 +647,6 @@ def work_of(name, args, kwargs, out) -> tuple[int, int]:
         rows, starts, lens = args[:3]
         moved = int(lens.clamp(min=0).sum()) + nbytes([starts, lens]) + nbytes(outs)
         ops = outs[0].numel() // 4
-    elif name == "expand_tokens_rows":
-        counts, combo, _m, _l, _size, starts = args[:6]
-        fetched = int(counts[combo >= 0].sum())
-        moved = nbytes([counts, combo, starts]) + 4 * fetched + nbytes(outs)
-        ops = 2 * counts.numel() + int(out[1])
     elif name == "pair_hist":
         # tokens, alive and piece_start read once, the histogram written
         # once; per position a scan step, per counted pair a hash and an add
@@ -638,7 +662,7 @@ def work_of(name, args, kwargs, out) -> tuple[int, int]:
     return moved, ops
 
 
-def library_call(name, args, out):
+def library_call(name, args, kwargs, out):
     """One PyTorch call computing the core of the entry point, where
     there is one, and whether it waits for the host (nonzero,
     masked_select and bincount read a count back)."""
@@ -675,10 +699,15 @@ def library_call(name, args, out):
         idx = idx.clamp(max=rows.numel() - 1)
         flat = rows.reshape(-1)
         return (lambda: torch.take(flat, idx)), False
-    if name == "expand_tokens_rows":
-        counts, combo, _m, _l, _size, starts, K, n_rows = args
-        total = int(out[1])
-        row = (starts // K).clamp(max=n_rows - 1).to(torch.int64)
+    if name == "assemble":
+        # the expansion's core on the per-piece counts and combos (computed
+        # here, outside the timed call)
+        from tiktoken_tpu_torch.ops.compaction import piece_counts
+
+        counts, combo = piece_counts(*args[:9])
+        starts, row_bad, n_rows = args[11], args[12], args[12].shape[0]
+        total = int(counts.sum())
+        row = (starts.clamp(min=0) // kwargs["K"]).clamp(max=n_rows - 1).to(torch.int64)
 
         def assembly():
             torch.repeat_interleave(combo, counts, output_size=total)
@@ -766,6 +795,8 @@ def kernel_phase(enc, docs, device="cuda", C: int = 32768):
         n_total=dev_inputs[3], is_doc_end=dev_inputs[4], KP=KP, KL=KL, na_frac=na_frac),
         ("row_off", "n_payload", "n_total", "is_doc_end"), steps)
     chunk_ms = gpu_ms(lambda: pipeline3.run_chunk(eng.tables, *dev_inputs, K=K), reps=5)
+    CHUNK_TRACES.append((f"v3 chunk program C={C} K={K}",
+                         lambda: pipeline3.run_chunk(eng.tables, *dev_inputs, K=K)))
     log(f"chunk program C={C} K={K}: kernels == plain (n_pieces={hk[-5]} "
         f"n_miss={hk[-4]} n_long={hk[-3]} n_tokens={nt}); device time with the "
         f"kernels {chunk_ms:.3f} ms")
@@ -884,7 +915,7 @@ def measure(calls, per: dict, program: str) -> None:
         plain_ms = wall_ms(lambda: p_fn(*args, **kwargs))
         moved, ops = work_of(name, args, kwargs, out)
         b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-        lib, syncs = library_call(name, args, out)
+        lib, syncs = library_call(name, args, kwargs, out)
         lib_ms = None if lib is None else wall_ms(lib, rounds=5) if syncs else gpu_ms(lib)
         e = per[kname]
         e["ms"] += ms
@@ -1205,10 +1236,26 @@ def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
         raise RuntimeError(f"the v1 edge chunk's longest piece has {longest} bytes, want > 64")
     log(f"v1 edge chunk: every entry point equal to plain (longest piece {longest} bytes, "
         f"rounds {int(calls_e1[-1][3][2])})")
+    # the v1 program on a 128-row chunk (the sharded v2's re-runs)
+    sub = [x[:128] for x in (rows, pay, tot)]
+    calls128: list = []
+    out128 = run_rows1(tb, *sub, ops=recording_ops(kernels.KERNEL_OPS, calls128))
+    for a, b, what in zip(out128, run_rows1(tb, *sub, ops=kernels.PLAIN_OPS),
+                          ("packed", "counts", "rounds", "row_bad")):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"v1 program on 128 rows: kernels and plain versions disagree on "
+                               f"{what}")
+    check_calls(calls128, "v1 128-row chunk")
+    log(f"v1 128-row chunk: every entry point equal to plain (row_bad {int(out128[3].sum())})")
     boundary_chunk(tb, rows.device)
     chunk2_ms = gpu_ms(lambda: run_chunk2(t, rows, pay, tot), reps=5)
     chunk2b_ms = gpu_ms(lambda: run_chunk2(tb, rows, pay, tot, scanner="byte"), reps=5)
     rows1_ms = gpu_ms(lambda: run_rows1(tb, rows, pay, tot), reps=3)
+    CHUNK_TRACES.extend([
+        (f"v2 chunk program C={C} K={DEFAULT_ROW}, char scanner",
+         lambda: run_chunk2(t, rows, pay, tot)),
+        ("v2 chunk program, byte scanner", lambda: run_chunk2(tb, rows, pay, tot, scanner="byte")),
+        ("v1 program on the same rows", lambda: run_rows1(tb, rows, pay, tot))])
     log(f"v2 chunk program C={C} K={DEFAULT_ROW}, char scanner: kernels == plain (n_tokens={nt}, "
         f"row_bad={int(hk[C:2 * C].sum())}, overflow={int(hk[-1])}, rows over the non-ASCII cap "
         f"{over_cap}); device time with the kernels {chunk2_ms:.3f} ms")
@@ -1218,7 +1265,7 @@ def kernel_phase2(enc, docs, device="cuda", C: int = 32768):
         f"tokens={int(out_k[1].sum())}, row_bad={int(out_k[3].sum())}); device time with the "
         f"kernels {rows1_ms:.3f} ms")
     seq = [c for c in calls_b if c[0] == "seq_scan"]  # the rest repeats the char route's entries
-    return calls, seq, calls1, (chunk2_ms, chunk2b_ms, rows1_ms), study, study_b
+    return calls, seq, calls1, calls128, (chunk2_ms, chunk2b_ms, rows1_ms), study, study_b
 
 
 # ---------------------------------------------------------------------------
@@ -1243,6 +1290,11 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    exported = [f"{name}.{e}" for name, lib in sorted(libs.libs.items()) for e in GONE_ENTRIES
+                if hasattr(lib, e)]
+    if exported:
+        raise RuntimeError(f"built kernel libraries still export removed entry points: {exported}")
+    log(f"no built kernel library exports a removed entry point ({', '.join(GONE_ENTRIES)})")
 
     # ---- 2: vocabulary and tables ------------------------------------------
     t0 = time.perf_counter()
@@ -1276,11 +1328,12 @@ def main() -> int:
 
     # ---- 4b: the same on a v2 chunk under both scanners and its v1 re-run -----
     t0 = time.perf_counter()
-    calls2, calls2b, calls1, (chunk2_ms, chunk2b_ms, rows1_ms), study2, study_b = \
+    calls2, calls2b, calls1, calls128, (chunk2_ms, chunk2b_ms, rows1_ms), study2, study_b = \
         kernel_phase2(enc, docs)
     measure(calls2, per, "v2")
     measure(calls2b, per, "v2_byte")
     measure(calls1, per, "v1")
+    measure(calls128, per, "v1_128")
     (_, gm_args, gm_kwargs, gm_out), = [c for c in calls1 if c[0] == "grid_merge"]
     gm_probes = work_of("grid_merge", gm_args, gm_kwargs, gm_out)[1] // 8
     per["grid_merge"]["probe_floor_ms"] = probe_floor_ms(gm_args[0], gm_probes)
@@ -1333,8 +1386,8 @@ def main() -> int:
         raise RuntimeError("the overflow call did not re-run a chunk through v1")
     for path, entry in (("v2", "tt_char_scan"), ("v2_byte", "tt_seq_scan"),
                         ("v2", "tt_compact_kinds"), ("v2_byte", "tt_compact_kinds"),
-                        ("v2_overflow", "tt_char_scan"), ("v2_overflow", "tt_window_scan"),
-                        ("v2_overflow", "tt_orbit"), ("v2_overflow", "tt_grid_merge")):
+                        ("v2_overflow", "tt_char_scan"), ("v2_overflow", "tt_window_orbit"),
+                        ("v2_overflow", "tt_grid_merge")):
         if launches[path]["entries"].get(entry, 0) <= 0:
             raise RuntimeError(f"{entry} was not launched on the {path} path")
     for path in ("v2", "v2_overflow"):
@@ -1403,6 +1456,13 @@ def main() -> int:
     api_phase(enc, all_docs, edge, tokens, offsets, total_bytes, card, launches)
     phase_s["9"] = time.perf_counter() - t0
 
+    # ---- 9b: each chunk program traced: only the package's kernels
+    t0 = time.perf_counter()
+    for what, fn in CHUNK_TRACES:
+        chunk_trace(what, fn)
+    CHUNK_TRACES.clear()
+    phase_s["9b"] = time.perf_counter() - t0
+
     # ---- 10: the sharded engine across processes ---------------------------------
     t0 = time.perf_counter()
     xproc_phase(enc, eng, all_docs, tokens, offsets, run["fallback_docs"], words[0], hist,
@@ -1414,6 +1474,18 @@ def main() -> int:
     for k in kernels.KERNELS:
         e = per[k]
         by_path = {path: launches[path]["kernels"][k] for path in PATH_KERNELS}
+        by_entry: dict[str, list] = {}
+        for x in e["entries"]:
+            by_entry.setdefault(x["entry"], []).append(x)
+        entry_rows = [dict(
+            entry=f"tt_{op}", launches=sum(launches[path]["entries"].get(f"tt_{op}", 0)
+                                           for path in PATH_KERNELS),
+            ms=sum(x["ms"] for x in xs), plain_ms=sum(x["plain_ms"] for x in xs),
+            bound_ms=sum(x["bound_ms"] for x in xs),
+            library_ms=sum(x["library_ms"] or 0.0 for x in xs) or None,
+            by_program={prog: sum(x["ms"] for x in xs if x["program"] == prog)
+                        for prog in dict.fromkeys(x["program"] for x in xs)})
+            for op, xs in by_entry.items()]
         rows.append(dict(
             name=k, route="cuda", source=f"tiktoken_tpu_torch/csrc/{k}.cu",
             replaces=REPLACES[k], jax_functions=JAX_FUNCTIONS[k],
@@ -1421,7 +1493,7 @@ def main() -> int:
             max_abs_err=e["max_abs_err"], match=e["match"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by="bytes" if e["bytes_bound_ms"] >= e["ops_bound_ms"] else "operations",
-            library_ms=e["library_ms"],
+            library_ms=e["library_ms"], entries=entry_rows,
             **({"scan_study": {"v3": study3, "v2": study2}} if k == "scan_rows" else {}),
             **({"scan_study": {"v2_byte": study_b}} if k == "byte_scan" else {}),
             **{f: e[f] for f in ("probe_floor_ms", "atomic_floor_ms", "launch_floor_ms")
@@ -1432,7 +1504,7 @@ def main() -> int:
                 bound_ms=sum(x["bound_ms"] for x in e["entries"] if x["program"] == prog),
                 library_ms=sum(x["library_ms"] or 0.0 for x in e["entries"]
                                if x["program"] == prog) or None)
-                for prog in ("v3", "v2", "v2_byte", "v1", "train")
+                for prog in ("v3", "v2", "v2_byte", "v1", "v1_128", "train")
                 if any(x["program"] == prog for x in e["entries"])},
         ))
     print(card)
@@ -1464,9 +1536,9 @@ def counted(path: str, launches: dict, fn):
 
 def check_launches(path: str, counts: dict, who: str = "") -> None:
     """Fail if a kernel of the path was not launched, if a path that merges
-    did not launch ``tt_slot_merge_packed`` and ``tt_piece_counts``, or if
-    the path launched an entry point that the slot merge's redesign took
-    out. ``counts``: {"kernels": by kernel, "entries": by entry point}."""
+    did not launch ``tt_slot_merge_packed`` and ``tt_assemble``, or if the
+    path launched an entry point that a redesign took out. ``counts``:
+    {"kernels": by kernel, "entries": by entry point}."""
     where = f"the {path} path{who}"
     for k in PATH_KERNELS[path]:
         if counts["kernels"][k] <= 0:
@@ -1475,7 +1547,7 @@ def check_launches(path: str, counts: dict, who: str = "") -> None:
     if gone:
         raise RuntimeError(f"{where} launched {gone}")
     if "slot_merge" in PATH_KERNELS[path]:
-        for e in ("tt_slot_merge_packed", "tt_piece_counts"):
+        for e in ("tt_slot_merge_packed", "tt_assemble"):
             if counts["entries"].get(e, 0) <= 0:
                 raise RuntimeError(f"{e} was not launched on {where}")
 
@@ -2014,6 +2086,72 @@ def trace_summary(trace_dir: str, wall_s: float) -> dict:
     return {"busy_share": busy_us / 1e6 / wall_s, "busy_ms": busy_us / 1e3,
             "launches": len(kernels), "torch_ms": torch_ms,
             "package_ms": sum(e["dur"] for e in kernels) / 1e3 - torch_ms, "top": top[:5]}
+
+
+def package_kernels() -> set[str]:
+    """The names of the package's CUDA kernels (every ``__global__``
+    function under ``tiktoken_tpu_torch/csrc``)."""
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiktoken_tpu_torch", "csrc")
+    names: set[str] = set()
+    for f in os.listdir(csrc):
+        if f.endswith((".cu", ".cuh")):
+            with open(os.path.join(csrc, f)) as fh:
+                names.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", fh.read()))
+    return names
+
+
+# (what, call) of the chunk programs that phases 4 and 4b hand to phase
+# 9b's traces
+CHUNK_TRACES: list = []
+
+
+def chunk_trace(what: str, fn) -> dict:
+    """Three calls of a chunk program (warmed up first) traced with
+    ``torch.profiler``: fails unless every CUDA kernel in the trace is one
+    of the package's, and unless the trace holds every kernel that the host
+    launched in it (its CUDA runtime or driver launch calls, at least one
+    an entry call) but the last one: a session may drop the last kernel it
+    saw, so a kernel that each call launches is seen at least twice.
+    Returns the kernels' count and ms and PyTorch's (``at::``) ms."""
+    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.utils.profiling import device_trace
+
+    fn()
+    torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="chunk_trace_")
+    try:
+        kernels.reset_launches()
+        with device_trace(tmp):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        entry_calls = sum(kernels.launches.values())
+        (name,) = os.listdir(tmp)
+        with open(os.path.join(tmp, name)) as f:
+            trace = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    events = [e for e in trace if e.get("cat") == "kernel"]
+    host = [e for e in trace if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and ("LaunchKernel" in e["name"] or "LaunchCooperativeKernel" in e["name"])]
+    ours = package_kernels()
+    foreign = [e["name"] for e in events if "at::" in e["name"]
+               or kernel_name(e["name"]).split("<")[0].split("::")[-1] not in ours]
+    out = dict(kernels=len(events), launched=len(host), entry_calls=entry_calls,
+               ms=sum(e["dur"] for e in events) / 1e3,
+               torch_ms=sum(e["dur"] for e in events if "at::" in e["name"]) / 1e3,
+               foreign=len(foreign))
+    log(f"{what}, three calls traced (torch.profiler): {out['kernels']} CUDA kernels recorded "
+        f"of the {len(host)} the host launched from {entry_calls} entry calls, "
+        f"{out['ms']:.4f} ms, every one the package's; PyTorch's own (at::) "
+        f"{out['torch_ms']:.4f} ms")
+    if len(host) < entry_calls or len(events) < len(host) - 1:
+        raise RuntimeError(f"{what}: the trace holds {len(events)} kernels and {len(host)} "
+                           f"launches from {entry_calls} entry calls")
+    if foreign:
+        raise RuntimeError(f"{what} ran kernels that are not the package's: {foreign[:5]}")
+    return out
 
 
 def api_phase(enc, all_docs, edge, tokens, offsets, total_bytes: int, card: str,

@@ -20,8 +20,9 @@ C=32768, K=256, char scanner) it prints:
    live slots only; the row compaction after it, over the cap; and the
    whole kernel over the live slots with the package's probe (the
    bucket row's first 32-byte sector first);
-4. the package's ``tt_slot_merge_packed`` and ``tt_piece_counts`` on the
-   same inputs, through its wrappers;
+4. the package's ``tt_slot_merge_packed`` and ``tt_assemble`` (the
+   per-piece counts and combos folded into the expansion) on the same
+   inputs, through its wrappers;
 5. ``csrc/slot_merge.cu`` built with other lanes per slot
    (``TT_SLOT_LANES`` 16, 8, 4, 2, 1 for W=16, and 8 with a register cap
    for 6 or 8 resident blocks per SM; ``TT_LONG_SLOT_LANES`` 32, 16, 8, 4
@@ -266,7 +267,7 @@ def merge_calls(eng, docs):
         calls: list = []
         run(chip_smoke.recording_ops(kernels.KERNEL_OPS, calls))
         programs[prog] = lambda run=run: run(kernels.KERNEL_OPS)
-        out += [(prog, *c) for c in calls if c[0] in ("slot_merge_packed", "piece_counts")]
+        out += [(prog, *c) for c in calls if c[0] in ("slot_merge_packed", "assemble")]
     return out, programs
 
 
@@ -415,9 +416,10 @@ def main() -> int:
         print(f"{prog} W={W} tt_slot_merge_packed by lanes per slot (equal outputs), ms: "
               + ", ".join(times))
     for prog, _name, args, kwargs, _out in calls:
-        if _name == "piece_counts":
-            ms = chip_smoke.gpu_ms(lambda: kernels.piece_counts(*args, **kwargs))
-            print(f"{prog} tt_piece_counts over {args[1].shape[0]} catalog entries: {ms:.4f} ms")
+        if _name == "assemble":
+            ms = chip_smoke.gpu_ms(lambda: kernels.assemble(*args, **kwargs))
+            print(f"{prog} tt_assemble over {int(args[0])} of {args[1].shape[0]} catalog "
+                  f"entries: {ms:.4f} ms")
     return 0
 
 

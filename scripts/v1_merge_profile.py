@@ -4,7 +4,7 @@
     python3 scripts/v1_merge_profile.py     # from the repository root
 
 On the v2 kernel-phase chunk of ``chip_smoke.py`` (C=32768 rows, K=256;
-its piece starts from the package's ``tt_window_scan`` + ``tt_orbit``) it
+its piece starts from the package's ``tt_window_orbit``) it
 prints:
 
 1. the work: pieces, merges and pair probes per chunk (a piece of n bytes

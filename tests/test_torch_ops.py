@@ -529,11 +529,14 @@ def test_slot_merge_packed_matches_jax_left_packed(vocab_tables, W):
 
 
 def test_piece_counts_matches_select_glue():
-    """piece_counts on a real v2 chunk's catalog (singles, short misses,
-    long hits and long misses) equals the select glue it replaces: the
-    slot counts routed to their pieces by piece index, then the selects."""
+    """piece_counts (the counts and combos that the assembly, tt_assemble,
+    makes where it reads each piece) on a real v2 chunk's catalog (singles,
+    short misses, long hits and long misses) equals the select glue it
+    replaces: the slot counts routed to their pieces by piece index, then
+    the selects."""
     import tiktoken_tpu_torch
     from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops.compaction import piece_counts
     from tiktoken_tpu_torch.ops.engine import pack_documents
     from tiktoken_tpu_torch.ops.pipeline2 import NA_FRAC, chunk_caps2
 
@@ -564,8 +567,8 @@ def test_piece_counts_matches_select_glue():
     l_hit = kernels.long_vocab_hit(t.long_buckets, l_bytes, l_lens, t.long_seed)
     _, l_count = kernels.slot_merge_packed(t.pair_buckets, t.byte_to_rank, l_bytes, l_lens,
                                            t.pair_seed, n_long, hit=l_hit)
-    counts, combo = kernels.piece_counts(n_pieces, lens, hit, words, t.byte_to_rank, mslot,
-                                         lslot, m_count, l_count)
+    counts, combo = piece_counts(n_pieces, lens, hit, words, t.byte_to_rank, mslot, lslot,
+                                 m_count, l_count)
 
     # the replaced glue: routes of the slot counts by piece index, then selects
     def route(pid, real, cnt):

@@ -375,3 +375,68 @@ def test_replicas_copy_the_source_byte_table(enc):
     replica.tables.byte_scan = None
     assert replica.pat_str is None  # nothing to compile from
     assert torch.equal(replica.byte_tables().byte_scan, src.byte_tables().byte_scan)
+
+
+# cap -> (documents, the count over that cap; None: the non-ASCII cap of the
+# char scanner, every count within its cap)
+CAP_CASES = {
+    "pieces": (["1a" * 1100], "n_pieces"),
+    "misses": (["!q " * 700], "n_miss"),
+    "longs": ([(" " + "a" * 24) * 100], "n_long"),
+    "tokens": ([(" " + "a" * 17) * 60], "n_tokens"),
+    "non_ascii": ([CJK * 6], None),
+}
+
+
+def _counts(setup, texts) -> list[dict]:
+    """Each chunk's counts and non-ASCII flag, from the port's plain stages."""
+    from tiktoken_tpu_torch.ops import kernels
+    from tiktoken_tpu_torch.ops.engine import pack_documents
+    from tiktoken_tpu_torch.ops.pipeline2 import run_chunk2
+
+    scanner, *_, tables = setup
+    b = pack_documents([t.encode() for t in texts], K)
+    out = []
+    for lo in range(0, b.rows.shape[0], C):
+        rows = np.zeros((C, KL), np.uint8)
+        pay, tot = np.zeros(C, np.int32), np.zeros(C, np.int32)
+        n = min(C, b.rows.shape[0] - lo)
+        rows[:n], pay[:n], tot[:n] = (a[lo : lo + n] for a in (b.rows, b.n_payload, b.n_total))
+        seen = {}
+
+        def record(name):
+            def call(*a, **k):
+                seen[name] = getattr(kernels.PLAIN_OPS, name)(*a, **k)
+                return seen[name]
+            return call
+
+        ops = type("Ops", (), {n_: staticmethod(record(n_)) for n_ in vars(kernels.PLAIN_OPS)})
+        _, h = run_chunk2(tables, *(torch.from_numpy(x) for x in (rows, pay, tot)),
+                          scanner=scanner, ops=ops)
+        out.append(dict(n_pieces=int(seen["catalog2"][4]), n_miss=int(seen["compact_kinds"][1]),
+                        n_long=int(seen["compact_kinds"][4]), n_tokens=int(h[-2]),
+                        na=scanner == "char" and bool(seen["char_scan"][2]),
+                        overflow=bool(h[-1])))
+    return out
+
+
+@pytest.mark.parametrize("cap", list(CAP_CASES))
+def test_header_overflow_each_cap(setup, cap):
+    """The header written by the assembly (n_tokens, and the overflow rule
+    n_pieces > p_cap - 1, n_miss > m_cap, n_long > l_cap, n_tokens > t_cap -
+    1, the char scan's non-ASCII flag) equals the JAX program's on a chunk
+    over each cap."""
+    from tiktoken_tpu_torch.ops.pipeline2 import chunk_caps2
+
+    docs, field = CAP_CASES[cap]
+    scanner = setup[0]
+    _compare(setup, docs, want_overflow=field is not None or scanner == "char")
+    caps = chunk_caps2(K, C)
+    limits = dict(n_pieces=caps["p_cap"] - 1, n_miss=caps["m_cap"], n_long=caps["l_cap"],
+                  n_tokens=caps["t_cap"] - 1)
+    counts = _counts(setup, docs)
+    if field is not None:
+        assert any(c[field] > limits[field] and c["overflow"] for c in counts)
+    elif scanner == "char":
+        assert any(c["na"] and c["overflow"] and all(c[k] <= v for k, v in limits.items())
+                   for c in counts)

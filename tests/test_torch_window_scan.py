@@ -219,3 +219,118 @@ def test_orbit_doubling_equals_the_orbit(k):
     np.testing.assert_array_equal(row_bad.numpy(), (want & (hop <= 0)).any(axis=1))
     np.testing.assert_array_equal(want[:, 0], valid_len > 0)
     assert row_bad.any() and not row_bad.all()  # some chains end at a dead position
+
+
+FRONT_CASES = {  # case -> (texts, rows, window)
+    "mixed": (["x" * 60 + " ok", "a\n b today\n \n"] + TEXTS["mixed"], 24, W),
+    "u_cap_overflow": (["x" * 1000, "y " * 40, " " * 300], 16, W),
+    "one_phase": (["x" * 60 + " ok", "a\n b today\n \n"] + TEXTS["mixed"], 24, 16),
+}
+
+
+def _front_case(dfas, case):
+    from tiktoken_tpu_torch.ops.window_scan import window_orbit
+
+    dfa = dfas["o200k"][1]
+    packed = _table(dfa)
+    texts, n_rows, window = FRONT_CASES[case]
+    rows, pay, tot = _rows(texts, n_rows)
+    ps, bad = (x.numpy() for x in window_orbit(
+        torch.from_numpy(packed), torch.from_numpy(rows), torch.from_numpy(pay),
+        torch.from_numpy(tot), K=K, window=window))
+    return dfa, packed, rows, pay, tot, window, ps, bad
+
+
+@pytest.mark.parametrize("case", list(FRONT_CASES))
+def test_window_orbit_matches_jax(dfas, case):
+    """B11-B12 as one function (the plain ``window_orbit``) against the JAX
+    v1 front end: ``make_window_scan_fn``, ``make_orbit_fn`` and the row
+    flags of ``build_pipeline_fn`` (``ops/engine.py:268-272``). Over u_cap
+    every row with a payload is bad in both; there the JAX hop of positions
+    past the first u_cap unresolved ones keeps its first-phase value, so
+    the starts are held against JAX's orbit of the single-sweep numpy hops."""
+    from tiktoken_tpu.ops.window_scan import make_orbit_fn, make_window_scan_fn
+
+    from tiktoken_tpu_torch.ops.window_scan import byte_class_grid, match_ends_numpy
+
+    dfa, packed, rows, pay, tot, window, ps, bad = _front_case(dfas, case)
+    cls = byte_class_grid(torch.from_numpy(rows), torch.from_numpy(tot), K + window).numpy()
+    jhop, junres = (np.asarray(x) for x in jax.jit(make_window_scan_fn(window, dfa.n_states, 257))(
+        packed, cls))
+    orbit_fn = jax.jit(make_orbit_fn(K))
+    jps = np.asarray(orbit_fn(jhop, pay))
+    np.testing.assert_array_equal(bad, (jps & (junres | (jhop <= 0))).any(axis=1))
+    if case == "u_cap_overflow":
+        assert junres.all() and (bad == (pay > 0)).all()
+        hop = np.stack([match_ends_numpy(dfa, dfa.class_of[c].astype(np.int64), window)[0][:K]
+                        for c in cls]).astype(np.int32)
+        np.testing.assert_array_equal(ps, np.asarray(orbit_fn(hop, pay)))
+    else:
+        assert not junres.all() and bad.any() and not bad.all()
+        np.testing.assert_array_equal(ps, jps)
+
+
+def _fused_design(packed, rows, pay, tot, window, hot_rows=None):
+    """A numpy emulation of tt_window_orbit's design: per row, every
+    position walks at most FIRST_WINDOW bytes (hop and an "alive" bit);
+    the orbit of 0 finishes the walk to ``window`` of a start still alive;
+    the chunk's positions alive after FIRST_WINDOW bytes over u_cap make
+    every row with a payload bad. -> (piece_start, row_bad, walk steps)."""
+    from tiktoken_tpu_torch.ops.window_scan import ACC_BITS, DEAD, FIRST_WINDOW, START
+
+    C, KL_ = rows.shape
+    w1 = min(FIRST_WINDOW, window)
+    steps = 0
+
+    def walk(row, end, p, n):
+        nonlocal steps
+        state, hop = START, 0
+        for o in range(n):
+            q = p + o
+            steps += 1
+            v = int(packed[state, row[q] if q < end else 256])
+            state = v >> ACC_BITS
+            if state == DEAD:
+                return hop, False
+            a = (v & ((1 << ACC_BITS) - 1)) - 1
+            if a >= 0:
+                hop = o + 1 - a
+        return hop, True
+
+    ps = np.zeros((C, K), bool)
+    bad = np.zeros(C, bool)
+    n_alive = 0
+    for r in range(C):
+        end, vl = min(int(tot[r]), KL_), min(int(pay[r]), K)
+        first = [walk(rows[r], end, p, w1) for p in range(K)]
+        n_alive += sum(alive for _, alive in first)
+        cur = 0
+        while cur < vl:
+            ps[r, cur] = True
+            h, alive = first[cur]
+            unresolved = False
+            if alive:
+                if w1 < window:
+                    h, unresolved = walk(rows[r], end, cur, window)
+                else:
+                    unresolved = True
+            bad[r] |= unresolved or h <= 0
+            if h <= 0:
+                break
+            cur += h
+    if w1 < window and n_alive > max(128, C * K // 32):
+        bad = pay > 0
+    return ps, bad, steps
+
+
+@pytest.mark.parametrize("case", list(FRONT_CASES))
+def test_fused_front_end_design_equals_plain(dfas, case):
+    """The design of csrc/byte_scan.cu's tt_window_orbit (walks capped at 16
+    bytes, the orbit finishing the rare longer match, the chunk-wide u_cap
+    rule) gives the plain version's starts and row flags, and walks fewer
+    bytes than the single-sweep window scan."""
+    _, packed, rows, pay, tot, window, ps, bad = _front_case(dfas, case)
+    got_ps, got_bad, steps = _fused_design(packed, rows, pay, tot, window)
+    np.testing.assert_array_equal(got_ps, ps)
+    np.testing.assert_array_equal(got_bad, bad)
+    assert steps <= rows.shape[0] * K * window

@@ -1,22 +1,24 @@
 // compaction: the piece catalogs, the fused short-miss and long
-// compactions (stable stream compaction), row-wise compaction, slot
-// extraction, monotone routing and the expansion of per-piece token counts
-// into the token stream of a v3 or v2 chunk.
+// compactions (stable stream compaction), slot extraction and the
+// assembly of a v3 or v2 chunk: its per-piece token counts, their
+// expansion into the token stream, the row counts and the header.
 //
 // Replaces (JAX package): ops/compaction.py compact (the piece catalog of
 // ops/pipeline3.py build_pipeline3_fn (B5) with its piece lengths,
 // too-long row flags and canonical word padding, and the short-miss and
 // long compactions of B7/B8 with their kind masks and slot prefix sums),
-// route_right (pipeline3.py) and ops/compaction.py expand with the token
-// fetch that follows it (B8). Those are scatter-free radix routes, built
-// so because scatters are slow on the TPU. For v2 (B10): ops/pieces.py
-// make_catalog_fn and make_extract_fn with the too-long row flags of
-// ops/pipeline2.py (tt_catalog2), its extract_long (tt_extract_slots),
-// and its assembly, the masked scatters of singles, short-miss and long
-// tokens at off + rank with the per-row token counts
-// (tt_expand_tokens_rows). Plain PyTorch versions: ops/compaction.py
-// catalog, catalog2, compact_kinds, compact_rows, extract_slots,
-// route_right, expand_tokens, expand_tokens_rows.
+// and build_pipeline3_fn's assembly (B8, :584-666): route_right of the
+// slot counts, the single / count / combo selects, ops/compaction.py
+// expand with the token fetch that follows it, the row counts, the
+// overflow rule and the header. Those are scatter-free radix routes,
+// built so because scatters are slow on the TPU. For v2 (B10):
+// ops/pieces.py make_catalog_fn and make_extract_fn with the too-long row
+// flags of ops/pipeline2.py (tt_catalog2), its extract_long
+// (tt_extract_slots, also v3's extract_long, pipeline3.py:351) and its
+// assembly, the masked scatters of singles, short-miss and long tokens at
+// off + rank with the per-row token counts, the overflow rule and the
+// header (tt_assemble). Plain PyTorch versions: ops/compaction.py
+// catalog, catalog2, compact_kinds, extract_slots, assemble.
 //
 // What bounds it on the H100: bytes. A chunk's catalog reads ~7.3 M mask
 // bytes (v2 8.4 M) and writes its p_cap entries of 24 bytes; the other
@@ -24,7 +26,8 @@
 //
 // Design: the GPU form of the monotone routes is a prefix sum plus a
 // scatter, done in one pass by decoupled look-back (one_pass_kernel).
-// Each block claims the next tile of 4096 items from a counter and
+// Each block claims the next tile of 4096 items (2048 for the assembly) from
+// a counter and
 // 1. reads the items' values, neighbouring threads on neighbouring items,
 //    into shared memory;
 // 2. sums each thread's run of 16 neighbouring items, scans the sums over
@@ -47,16 +50,22 @@
 // and counts) is cleared by one cudaMemsetAsync per call.
 // tt_compact_kinds makes the short-miss and long compactions of one
 // catalog one such pass, its two counts packed in one 62-bit status.
-// Row-wise compaction (16 or 64 lanes) runs a warp per row (two per warp
-// at 16) by ballots.
+// tt_assemble takes only the catalog's live entries (below n_pieces, read
+// on the device: the tiles past them only count as finished), reads each
+// one's length, hit and slots where it is loaded and makes its count and
+// combo there, so neither reaches HBM; its tail writes the header.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int TPB = 256;  // threads per tile block
-constexpr int IPT = 16;   // items per thread
+constexpr int IPT = 16;   // items per thread (tt_assemble's tiles: ASM_IPT)
 constexpr int TILE = TPB * IPT;
+// items per thread of tt_assemble: smaller tiles, so a v3 chunk's few
+// hundred live tiles fill more of the resident block slots
+// (scripts/redesign_times.py)
+constexpr int ASM_IPT = 8;
 constexpr int TAIL = TPB * 16;  // output entries zeroed per tail block
 constexpr int SLOT = 16;       // ops/pieces.py SLOT
 constexpr int LONG_SLOT = 64;  // ops/pieces.py LONG_SLOT
@@ -118,22 +127,39 @@ __device__ long long tile_prefix(unsigned long long* status, int tile, long long
   return s_prefix;
 }
 
-// The tile's shared memory: each item's value, then its offset in the
-// tile; and the item of each of the tile's entries.
-struct TileSmem {
-  uint32_t val[TILE + TILE / 32];
-  uint16_t idx[TILE];
-};
+__host__ __device__ int n_tiles_of(long long n, int tile) {
+  return static_cast<int>((n + tile - 1) / tile);
+}
 
-// Defaults of a one-pass op. An op gives each item's value (value), its
+// The tile's shared memory: each item's value, then its offset in the
+// tile; the item of each of the tile's entries; and, for an op that makes
+// them in its values pass (AUX), a word per item for its emit.
+template <bool AUX, int T>
+struct TileSmemT {
+  uint32_t val[T + T / 32];
+  uint16_t idx[T];
+  uint32_t aux[AUX ? T : 1];
+};
+using TileSmem = TileSmemT<false, TILE>;
+
+// Defaults of a one-pass op. An op gives the items it takes (live: the
+// first live(n) of the n a launch is sized for, read on the device; the
+// tiles past them only count as finished), each item's value (value), its
 // tile-local sums widened to the status format (widen), sees each
 // thread's run of items (run), gives each item its offset (emit), writes
 // the tile's entries (entries), receives the total (total) and finishes
-// tail block k once every tile is done (tail).
+// tail block k once every tile is done (tail). An op with AUX makes a
+// thread's values together (values: its loads issued side by side, not
+// one item's after another's) and keeps a word per item for its emit. A
+// tile holds TPB * ITEMS items.
 struct OpBase {
+  static constexpr bool AUX = false;
+  static constexpr int ITEMS = IPT;  // items per thread of a tile
+  __device__ long long live(long long n) const { return n; }
   __device__ long long widen(long long local) const { return local; }
   __device__ void run(long long, const uint32_t*, long long) const {}
-  __device__ void entries(long long, long long, uint32_t, const TileSmem&, long long) const {}
+  template <class S>
+  __device__ void entries(long long, long long, uint32_t, const S&, long long) const {}
 };
 
 // One pass of a stable prefix sum with its scatter (see the file's
@@ -143,7 +169,9 @@ struct OpBase {
 template <class Op>
 __global__ void __launch_bounds__(TPB, 4) one_pass_kernel(Op op, long long n, int n_tiles,
                                                          unsigned long long* scratch) {
-  __shared__ TileSmem sm;
+  constexpr int ipt = Op::ITEMS;
+  constexpr int tile_items = TPB * ipt;
+  __shared__ TileSmemT<Op::AUX, tile_items> sm;
   __shared__ int s_tile;
   if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(scratch, 1ull));
   __syncthreads();
@@ -156,22 +184,33 @@ __global__ void __launch_bounds__(TPB, 4) one_pass_kernel(Op op, long long n, in
     op.tail(tile - n_tiles, static_cast<long long>(load_volatile(scratch + 2)));
     return;
   }
-  const long long base = static_cast<long long>(tile) * TILE;
-  // 1. values, neighbouring threads on neighbouring items
-  uint32_t v[IPT];
-#pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    const int li = j * TPB + threadIdx.x;
-    v[j] = base + li < n ? op.value(base + li) : 0u;
-    sm.val[pad(li)] = v[j];
+  n = op.live(n);
+  const int last = max(n_tiles_of(n, tile_items), 1) - 1;  // the last tile with items (or 0)
+  if (tile > last) {
+    if (threadIdx.x == 0) atomicAdd(scratch + 1, 1ull);
+    return;
   }
+  const long long base = static_cast<long long>(tile) * tile_items;
+  // 1. values, neighbouring threads on neighbouring items
+  uint32_t v[ipt];
+  if constexpr (Op::AUX) {
+    op.values(base, n, v, sm.aux);
+  } else {
+#pragma unroll
+    for (int j = 0; j < ipt; ++j) {
+      const int li = j * TPB + threadIdx.x;
+      v[j] = base + li < n ? op.value(base + li) : 0u;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < ipt; ++j) sm.val[pad(j * TPB + threadIdx.x)] = v[j];
   __syncthreads();
   // 2. each thread's run, scanned over the block and the tiles before
-  const int r0 = threadIdx.x * IPT;
-  uint32_t run[IPT];
+  const int r0 = threadIdx.x * ipt;
+  uint32_t run[ipt];
   long long sum = 0;
 #pragma unroll
-  for (int j = 0; j < IPT; ++j) {
+  for (int j = 0; j < ipt; ++j) {
     run[j] = sm.val[pad(r0 + j)];
     sum += run[j];
   }
@@ -181,14 +220,14 @@ __global__ void __launch_bounds__(TPB, 4) one_pass_kernel(Op op, long long n, in
   const long long prefix = tile_prefix(scratch + SCRATCH_HEAD, tile, op.widen(aggregate));
   uint32_t off = static_cast<uint32_t>(excl);
 #pragma unroll
-  for (int j = 0; j < IPT; ++j) {
+  for (int j = 0; j < ipt; ++j) {
     sm.val[pad(r0 + j)] = off;
     off += run[j];
   }
   __syncthreads();
   // 3. each item at its offset, neighbouring threads on neighbouring items
 #pragma unroll
-  for (int j = 0; j < IPT; ++j) {
+  for (int j = 0; j < ipt; ++j) {
     const int li = j * TPB + threadIdx.x;
     if (base + li < n) op.emit(base + li, li, sm.val[pad(li)], v[j], prefix, sm);
   }
@@ -198,7 +237,7 @@ __global__ void __launch_bounds__(TPB, 4) one_pass_kernel(Op op, long long n, in
   __threadfence();  // this tile's writes before its count of finished tiles
   __syncthreads();
   if (threadIdx.x == 0) {
-    if (tile == n_tiles - 1) {
+    if (tile == last) {
       const long long total = prefix + op.widen(aggregate);
       store_volatile(scratch + 2, static_cast<unsigned long long>(total));
       op.total(total);
@@ -219,24 +258,26 @@ __host__ __device__ int tail_blocks(long long out_size) {
   return static_cast<int>((out_size + TAIL - 1) / TAIL);
 }
 
-int n_tiles_of(long long n) { return static_cast<int>((n + TILE - 1) / TILE); }
 
 unsigned blocks_of(long long n, int tpb) { return static_cast<unsigned>((n + tpb - 1) / tpb); }
 
+// status words for n items: one a tile of the smallest tiles an op takes
+int status_words(long long n) { return n_tiles_of(n, TPB * ASM_IPT); }
+
 long long scratch_words(long long n, long long row_bytes) {
-  return SCRATCH_HEAD + n_tiles_of(n) + (row_bytes + 7) / 8;
+  return SCRATCH_HEAD + status_words(n) + (row_bytes + 7) / 8;
 }
 
 // the entry's per-row words in the scratch, past the status words
 void* row_scratch(void* scratch, long long n) {
-  return static_cast<unsigned long long*>(scratch) + SCRATCH_HEAD + n_tiles_of(n);
+  return static_cast<unsigned long long*>(scratch) + SCRATCH_HEAD + status_words(n);
 }
 
 // clears the scratch and launches the pass over n items
 template <class Op>
 int one_pass(const Op& op, long long n, long long row_bytes, int n_tail, void* scratch,
              cudaStream_t st) {
-  const int nt = n_tiles_of(n);
+  const int nt = n_tiles_of(n, TPB * Op::ITEMS);
   cudaError_t e = cudaMemsetAsync(scratch, 0, scratch_words(n, row_bytes) * 8, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   one_pass_kernel<<<nt + n_tail, TPB, 0, st>>>(op, n, nt,
@@ -507,31 +548,123 @@ struct KindsOp : OpBase {
   }
 };
 
-// Expansion: piece i owns the run [off, off + counts[i]) of the token
-// stream (counts non-negative), written where the piece gets its offset,
-// neighbouring threads on neighbouring pieces. A combo with bit 31 set
-// carries a single piece's token; otherwise token k of the run is
-// src[combo + k], src being m_tok then l_tok. With row_sums, each row's
-// token count: piece i adds counts[i] to row min(starts[i] / K, n_rows -
-// 1), summed over each thread's run of items of one row (the catalog is
-// row-ordered), one atomicAdd per run into the scratch, which the tail
-// copies out.
-struct ExpandOp : OpBase {
-  const int *counts, *combo, *m_tok, *l_tok;
-  long long n_m, n_l, out_size;
+// The assembly of a chunk: each live piece's token count and combo (the
+// single / count / combo selects of build_pipeline3_fn), made where the
+// piece is read, and their expansion into the token stream. Piece i (below
+// n_pieces) of one byte, or of 2..16 bytes with a whole-piece hit, is a
+// single: one token, byte_to_rank of its first byte or the hit; a short
+// miss (mslot >= 0) counts m_count[mslot] tokens from m_tok at mslot * 16,
+// a long piece (lslot >= 0) l_count[lslot] from l_tok at lslot * 64 (a
+// slot past its cap counts 0). Piece i owns the run [off, off + count) of
+// the stream, written where the piece gets its offset, neighbouring
+// threads on neighbouring pieces. Each row's token count: piece i adds its
+// count to row min(starts[i] / K, n_rows - 1), summed over each thread's
+// run of items of one row (the catalog is row-ordered), one atomicAdd per
+// run into the scratch. The tail copies the row counts and row_bad into
+// the header, zeroes the stream past the total and writes the header's
+// counts and overflow flag.
+struct AssembleOp : OpBase {
+  static constexpr bool AUX = true;  // aux: each item's combo
+  static constexpr int ITEMS = ASM_IPT;
+  const int* n_pieces;
+  const int *lens, *hit, *words, *byte_to_rank, *mslot, *lslot, *m_count, *l_count;
+  int m_cap, l_cap;
+  const int *m_tok, *l_tok;
+  long long out_size;
   int* tok;
-  int* total_out;
   const int* starts;
   int K, n_rows;
   int* row_sums;  // scratch
-  int* row_counts;
-  __device__ uint32_t value(long long i) const { return static_cast<uint32_t>(counts[i]); }
+  const uint8_t* row_bad;
+  const int *n_miss, *n_long;
+  const uint8_t* na_flag;  // or null
+  long long p_limit, t_limit;
+  int full;  // the v3 header (n_pieces, n_miss, n_long too)
+  int* header;
+  __device__ long long live(long long n) const { return min(n, max(__ldg(n_pieces), 0) * 1ll); }
+  // What an item still needs after its slots are read: nothing, its first
+  // byte's token, or its merged slot's count (2 bits an item).
+  enum Need : unsigned { DONE = 0, BYTE, MCOUNT, LCOUNT };
+  // The counts (v) and combos (aux[j * TPB + t]) of this thread's items
+  // i = base + j * TPB + t below n, in three rounds of loads, each round's
+  // issued together: the lengths and hits; the first words of the one-byte
+  // pieces and both slots of the pieces that are not singles; the first
+  // bytes' tokens and the merged slots' counts. Combos as
+  // build_pipeline3_fn's: a single's token with bit 31 set, else the
+  // slot's base in m_tok then l_tok.
+  __device__ void values(long long base, long long n, uint32_t* v, uint32_t* aux) const {
+    unsigned need = 0;  // 2 bits an item
+    unsigned slots = 0;  // the items that read their slots
+    int x[ITEMS], y[ITEMS];
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const long long i = base + j * TPB + threadIdx.x;
+      x[j] = i < n ? __ldg(lens + i) : 0;
+      y[j] = i < n ? __ldg(hit + i) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const long long i = base + j * TPB + threadIdx.x;
+      const int L = x[j];
+      v[j] = 0;
+      uint32_t cb = 0;
+      if (L == 1) {
+        need |= BYTE << (2 * j);
+      } else if (L >= 2 && L <= SLOT && y[j] != -1) {  // a single: its hit
+        v[j] = 1;
+        cb = static_cast<uint32_t>(y[j]) | 0x80000000u;
+      } else if (i < n) {
+        slots |= 1u << j;
+      }
+      aux[j * TPB + threadIdx.x] = cb;
+    }
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const long long i = base + j * TPB + threadIdx.x;
+      const bool s = (slots >> j) & 1;
+      x[j] = s ? __ldg(mslot + i) : ((need >> (2 * j)) & 3) == BYTE ? __ldg(words + 4 * i) : 0;
+      y[j] = s ? __ldg(lslot + i) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      if (((need >> (2 * j)) & 3) == BYTE) {
+        aux[j * TPB + threadIdx.x] = x[j] & 0xFF;
+      } else if ((slots >> j) & 1) {
+        const int ms = x[j], ls = y[j];
+        if (ms >= 0) {  // a short miss
+          aux[j * TPB + threadIdx.x] = min(ms, m_cap - 1) * SLOT;
+          if (ms < m_cap) need |= MCOUNT << (2 * j);
+        } else if (ls >= 0) {  // a long piece
+          aux[j * TPB + threadIdx.x] = m_cap * SLOT + min(ls, l_cap - 1) * LONG_SLOT;
+          if (ls < l_cap) need |= LCOUNT << (2 * j);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const unsigned w = (need >> (2 * j)) & 3;
+      const uint32_t a = aux[j * TPB + threadIdx.x];
+      x[j] = w == BYTE     ? __ldg(byte_to_rank + a)
+             : w == MCOUNT ? __ldg(m_count + a / SLOT)
+             : w == LCOUNT ? __ldg(l_count + (a - m_cap * SLOT) / LONG_SLOT)
+                           : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const unsigned w = (need >> (2 * j)) & 3;
+      if (w == BYTE) {
+        v[j] = 1;
+        aux[j * TPB + threadIdx.x] = static_cast<uint32_t>(x[j]) | 0x80000000u;
+      } else if (w != DONE) {
+        v[j] = static_cast<uint32_t>(x[j]);
+      }
+    }
+  }
   __device__ void run(long long first, const uint32_t* v, long long n) const {
-    if (row_sums == nullptr) return;
     int row = -1;
     uint32_t sum = 0;
 #pragma unroll
-    for (int j = 0; j < IPT; ++j) {
+    for (int j = 0; j < ITEMS; ++j) {
       if (first + j >= n || v[j] == 0) continue;
       const int r = min(max(starts[first + j], 0) / K, n_rows - 1);
       if (r != row) {
@@ -543,12 +676,13 @@ struct ExpandOp : OpBase {
     }
     if (sum) atomicAdd(row_sums + row, static_cast<int>(sum));
   }
-  __device__ void emit(long long i, int, uint32_t off, uint32_t v, long long prefix,
-                       TileSmem&) const {
+  __device__ void emit(long long, int li, uint32_t off, uint32_t v, long long prefix,
+                       TileSmemT<true, TPB * ITEMS>& sm) const {
     if (v == 0) return;
-    const int cb = combo[i];
+    const int cb = static_cast<int>(sm.aux[li]);
     const int low = cb & 0x7FFFFFFF;
-    const long long last = n_m + n_l - 1;
+    const long long n_m = static_cast<long long>(m_cap) * SLOT;
+    const long long last = n_m + static_cast<long long>(l_cap) * LONG_SLOT - 1;
     const long long o = prefix + off;
     for (uint32_t k = 0; k < v && o + k < out_size; ++k) {
       int t = low;
@@ -559,51 +693,32 @@ struct ExpandOp : OpBase {
       tok[o + k] = t;
     }
   }
-  __device__ void total(long long t) const { *total_out = static_cast<int>(t); }
+  __device__ void total(long long) const {}
   __device__ void tail(int k, long long total) const {
-    if (row_sums != nullptr) {
-      const int hi = min((k + 1) * TAIL, n_rows);
-      for (int r = k * TAIL + threadIdx.x; r < hi; r += TPB) row_counts[r] = row_sums[r];
+    const int hi = min((k + 1) * TAIL, n_rows);
+    for (int r = k * TAIL + threadIdx.x; r < hi; r += TPB) {
+      header[r] = row_sums[r];
+      header[n_rows + r] = row_bad[r];
     }
-    long long lo, hi;
-    tail_range(k, total, out_size, lo, hi);
-    for (long long j = lo + threadIdx.x; j < hi; j += TPB) tok[j] = 0;
+    if (k == 0 && threadIdx.x == 0) {
+      const int np = __ldg(n_pieces), nm = __ldg(n_miss), nl = __ldg(n_long);
+      const bool over = np > p_limit || nm > m_cap || nl > l_cap || total > t_limit ||
+                        (na_flag != nullptr && *na_flag);
+      int* h = header + 2 * n_rows;
+      if (full) {
+        h[0] = np;
+        h[1] = nm;
+        h[2] = nl;
+        h += 3;
+      }
+      h[0] = static_cast<int>(total);
+      h[1] = over;
+    }
+    long long lo, hi_t;
+    tail_range(k, total, out_size, lo, hi_t);
+    for (long long j = lo + threadIdx.x; j < hi_t; j += TPB) tok[j] = 0;
   }
 };
-
-// Row-wise compaction with the count of each row: `seg` lanes per row
-// (W when W divides 32, else 32), 32 / seg rows per warp; each lane takes
-// a column of its row per round, a ballot ranks the valid ones.
-__global__ void compact_rows_kernel(const uint8_t* __restrict__ valid, const int* __restrict__ vals,
-                                    int M, int W, int seg, int* __restrict__ out,
-                                    int* __restrict__ counts) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const long long m = warp * (32 / seg) + lane / seg;
-  const int sl = lane % seg;
-  const unsigned seg_bits = (seg == 32 ? 0xffffffffu : (1u << seg) - 1) << (lane / seg * seg);
-  const bool row_ok = m < M;
-  const long long base = m * W;
-  int c = 0;
-  for (int c0 = 0; c0 < W; c0 += seg) {
-    const int col = c0 + sl;
-    const bool v = row_ok && col < W && valid[base + col];
-    const unsigned b = __ballot_sync(0xffffffffu, v) & seg_bits;
-    if (v) out[base + c + __popc(b & ((1u << lane) - 1))] = vals[base + col];
-    c += __popc(b);
-  }
-  if (!row_ok) return;
-  for (int col = c + sl; col < W; col += seg) out[base + col] = 0;
-  if (sl == 0) counts[m] = c;
-}
-
-__global__ void route_kernel(const int* __restrict__ dst, const int* __restrict__ vals, int n,
-                             int out_size, int* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int d = dst[i];
-  if (d >= 0 && d < out_size) out[d] = vals[i];
-}
 
 // slot extraction: word w of piece i = its bytes 4w..4w+3 from its row,
 // zero past min(len, width) and past the row
@@ -631,27 +746,11 @@ __global__ void extract_slots_kernel(const uint8_t* __restrict__ rows, int C, in
   out[t] = word;
 }
 
-int expand(const void* counts, const void* combo, long long n, const void* m_tok, long long n_m,
-           const void* l_tok, long long n_l, long long out_size, void* tok, void* total,
-           const void* starts, int K, int n_rows, void* row_counts, void* scratch,
-           cudaStream_t st) {
-  if (n <= 0 || n_m + n_l <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long row_bytes = row_counts ? 4ll * n_rows : 0;
-  const ExpandOp op{{}, static_cast<const int*>(counts), static_cast<const int*>(combo),
-                    static_cast<const int*>(m_tok), static_cast<const int*>(l_tok), n_m, n_l,
-                    out_size, static_cast<int*>(tok), static_cast<int*>(total),
-                    static_cast<const int*>(starts), K, n_rows,
-                    row_counts ? static_cast<int*>(row_scratch(scratch, n)) : nullptr,
-                    static_cast<int*>(row_counts)};
-  return one_pass(op, n, row_bytes,
-                  max(tail_blocks(out_size), row_counts ? tail_blocks(n_rows) : 0), scratch, st);
-}
-
 }  // namespace
 
 // scratch words (int64) a one-pass entry takes over n items with
 // row_bytes bytes of per-row words (tt_catalog, tt_catalog2: C;
-// tt_expand_tokens_rows: 4 * n_rows; the others 0)
+// tt_assemble: 4 * n_rows; the others 0)
 extern "C" int tt_scratch_words(long long n, long long row_bytes) {
   return static_cast<int>(scratch_words(n, row_bytes));
 }
@@ -701,42 +800,6 @@ extern "C" int tt_compact_kinds(const void* lens, const void* hit, const void* n
                   static_cast<cudaStream_t>(stream));
 }
 
-// row-wise compaction of vals [M, W] by valid [M, W], zero-filled, with
-// the count of each row
-extern "C" int tt_compact_rows(const void* valid, const void* vals, int M, int W, void* out,
-                               void* counts, void* stream) {
-  if (M <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int seg = (W < 32 && 32 % W == 0) ? W : 32;
-  const long long warps = (static_cast<long long>(M) + 32 / seg - 1) / (32 / seg);
-  compact_rows_kernel<<<blocks_of(warps * 32, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(valid), static_cast<const int*>(vals), M, W, seg,
-      static_cast<int*>(out), static_cast<int*>(counts));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out[dst[i]] = vals[i] for 0 <= dst[i] < out_size, zero elsewhere
-extern "C" int tt_route(const void* dst, const void* vals, int n, int out_size, void* out,
-                        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(out_size) * 4, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0)
-    route_kernel<<<blocks_of(n, 256), 256, 0, st>>>(static_cast<const int*>(dst),
-                                                    static_cast<const int*>(vals), n, out_size,
-                                                    static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the token stream of per-piece counts [n] and combos [n], fetching merged
-// tokens from m_tok [n_m] then l_tok [n_l]
-extern "C" int tt_expand_tokens(const void* counts, const void* combo, long long n,
-                                const void* m_tok, long long n_m, const void* l_tok,
-                                long long n_l, long long out_size, void* tok, void* total,
-                                void* scratch, void* stream) {
-  return expand(counts, combo, n, m_tok, n_m, l_tok, n_l, out_size, tok, total, nullptr, 1, 1,
-                nullptr, scratch, static_cast<cudaStream_t>(stream));
-}
-
 // v2 piece catalog over the start grid [C, K] of rows [C, KL]: starts,
 // lengths, padded words (16-byte aligned) and
 // row_bad_out = row_bad | too-long rows
@@ -770,14 +833,36 @@ extern "C" int tt_extract_slots(const void* rows, int C, int KL, int K, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// tt_expand_tokens plus the token count of each of n_rows rows of K grid
-// columns, by the flat grid start of each piece
-extern "C" int tt_expand_tokens_rows(const void* counts, const void* combo, long long n,
-                                     const void* m_tok, long long n_m, const void* l_tok,
-                                     long long n_l, long long out_size, const void* starts, int K,
-                                     int n_rows, void* tok, void* total, void* row_counts,
-                                     void* scratch, void* stream) {
-  if (K <= 0 || n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return expand(counts, combo, n, m_tok, n_m, l_tok, n_l, out_size, tok, total, starts, K, n_rows,
-                row_counts, scratch, static_cast<cudaStream_t>(stream));
+// the assembly of a chunk whose catalog holds p entries (n_pieces 0-d;
+// lens, hit, mslot, lslot, starts [p] i32; words [p, 4] i32) from the
+// merged slots (m_count [m_cap], m_tok [m_cap, 16]; l_count [l_cap], l_tok
+// [l_cap, 64]): tok [out_size] i32, zero past the total; header [2 *
+// n_rows + 5] (full: row counts, row_bad, n_pieces, n_miss, n_long,
+// n_tokens, overflow) or [2 * n_rows + 2] (row counts, row_bad, n_tokens,
+// overflow), overflow = n_pieces > p_limit | n_miss > m_cap | n_long >
+// l_cap | n_tokens > t_limit | na_flag (null: false); starts index rows of
+// K columns
+extern "C" int tt_assemble(const void* n_pieces, const void* lens, const void* hit,
+                           const void* words, const void* byte_to_rank, const void* mslot,
+                           const void* lslot, long long p, const void* m_count, int m_cap,
+                           const void* l_count, int l_cap, const void* m_tok, const void* l_tok,
+                           long long out_size, const void* starts, int K, const void* row_bad,
+                           int n_rows, const void* n_miss, const void* n_long, const void* na_flag,
+                           long long p_limit, long long t_limit, int full, void* tok,
+                           void* header, void* scratch, void* stream) {
+  if (p <= 0 || m_cap <= 0 || l_cap <= 0 || out_size <= 0 || K <= 0 || n_rows <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const AssembleOp op{{}, static_cast<const int*>(n_pieces), static_cast<const int*>(lens),
+                      static_cast<const int*>(hit), static_cast<const int*>(words),
+                      static_cast<const int*>(byte_to_rank), static_cast<const int*>(mslot),
+                      static_cast<const int*>(lslot), static_cast<const int*>(m_count),
+                      static_cast<const int*>(l_count), m_cap, l_cap,
+                      static_cast<const int*>(m_tok), static_cast<const int*>(l_tok), out_size,
+                      static_cast<int*>(tok), static_cast<const int*>(starts), K, n_rows,
+                      static_cast<int*>(row_scratch(scratch, p)),
+                      static_cast<const uint8_t*>(row_bad), static_cast<const int*>(n_miss),
+                      static_cast<const int*>(n_long), static_cast<const uint8_t*>(na_flag),
+                      p_limit, t_limit, full, static_cast<int*>(header)};
+  return one_pass(op, p, 4ll * n_rows, max(tail_blocks(out_size), tail_blocks(n_rows)), scratch,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -39,17 +39,24 @@
 //    word with the classes. The non-ASCII cap stays exact: where a round
 //    may cross it, a warp prefix count of the non-ASCII char ends, with a
 //    carry across the row's rounds, gives each one its rank; past the cap
-//    it reads class 0 and the row raises na_over;
+//    it reads class 0 and the row is over the cap;
 // 3. walks (B3/B16): one thread per row over the shared classes (walk_row,
 //    the one source of both scans), the step table read as bytes and the
 //    next class loaded while the step resolves, piece starts set in a
 //    per-row shared bit mask;
-// 4. writes the mask out, neighbouring threads on neighbouring words.
+// 4. writes the mask out, neighbouring threads on neighbouring words;
+// 5. ORs whether a row of the block is over the non-ASCII cap into the
+//    launch's flag (na_flag, the JAX programs' na_overflow): one atomic OR
+//    a block into a scratch word, then a ticket taken with one
+//    acquire-release atomic; the last block to arrive writes the flag and
+//    sets both scratch words back to 0, so no call pays a memset or a
+//    reduction launch.
 // B4 stays its own pass, one thread per 16 mask columns: folding it in
 // would walk one more row per block (the row before the block's first,
 // for its spec_f), and the pass is one small launch.
 
 #include <cstdint>
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 namespace {
@@ -116,7 +123,8 @@ struct Params {
   uint8_t* mask;  // [C, K]
   int* spec_f;    // v3
   uint8_t* row_bad;
-  uint8_t* na_over;
+  uint8_t* na_flag;    // 0-d: some row is over the non-ASCII cap
+  unsigned* scratch;   // [0] the ticket, [1] the blocks' flags: 0 at entry and at exit
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -341,6 +349,7 @@ __global__ void scan_kernel(const Params a) {
   // before any is written, so their classes are computed side by side
   const int lane = threadIdx.x & 31;
   const int n_warps = T >> 5;
+  int over = 0;  // a row of this thread's over the non-ASCII cap
   const int n_cls_words = KL / 4 + 1;  // through the EOF column
   // the text end of row warp + k * n_warps, held by lane k
   const int my_row = r0 + (threadIdx.x >> 5) + lane * n_warps;
@@ -409,9 +418,9 @@ __global__ void scan_kernel(const Params a) {
         if (w < n_cls_words) row[w] = out[q];
       }
     }
-    if (lane == 0) a.na_over[r0 + rr] = n_na > t.na_cap;
+    over |= lane == 0 && n_na > t.na_cap;
   }
-  __syncthreads();
+  const int block_over = __syncthreads_or(over);
 
   // 3. walk: a thread per row
   if (threadIdx.x < nrows) {
@@ -443,6 +452,19 @@ __global__ void scan_kernel(const Params a) {
       const int rr = i / K;
       const int col = i - rr * K;
       dst[i] = (s_mask[rr * MW + (col >> 5)] >> (col & 31)) & 1u;
+    }
+  }
+
+  // 5. the launch's non-ASCII flag
+  if (threadIdx.x == 0) {
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> flags(a.scratch[1]);
+    if (block_over) flags.fetch_or(1u, cuda::memory_order_relaxed);
+    // release: this block's OR is seen by whoever takes a later ticket;
+    // acquire: the last block sees every block's
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> ticket(a.scratch[0]);
+    if (ticket.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1) {
+      *a.na_flag = flags.exchange(0u, cuda::memory_order_relaxed) != 0;
+      ticket.store(0u, cuda::memory_order_relaxed);  // for the next call on this stream
     }
   }
 }
@@ -524,14 +546,15 @@ extern "C" int tt_scan_max_smem() { return MAX_SMEM; }
 
 // flat [S] u8 (4-byte aligned), row_off/n_payload/n_total [C] i32,
 // is_doc_end [C] u8 -> rows [C, KL] u8, mask [C, KP] u8, spec_f [C] i32,
-// row_bad [C] u8, na_over [C] u8
+// row_bad [C] u8, na_flag 0-d u8 (some row has more non-ASCII char ends
+// before n_total than na_cap); scratch: 2 words, 0 at entry and at exit
 extern "C" int tt_scan_rows(
     const void* flat, long long flat_size, const void* row_off, const void* n_payload,
     const void* n_total, const void* is_doc_end, int C, int KL, int KP,
     const void* page16, const void* mixed_rows, int n_mixed, const void* consts,
     int n_states, int n_words, int skip_cls, int cont_cls, int eof_cls, int na_cap,
-    int rows_per_block, void* rows, void* mask, void* spec_f, void* row_bad, void* na_over,
-    void* stream) {
+    int rows_per_block, void* rows, void* mask, void* spec_f, void* row_bad, void* na_flag,
+    void* scratch, void* stream) {
   if (reinterpret_cast<uintptr_t>(flat) & 3) return static_cast<int>(cudaErrorInvalidValue);
   const Params a{static_cast<const uint8_t*>(flat), flat_size, static_cast<const int*>(row_off),
                  static_cast<const int*>(n_payload), static_cast<const int*>(n_total),
@@ -540,7 +563,8 @@ extern "C" int tt_scan_rows(
                  n_mixed, static_cast<const uint32_t*>(consts), n_states, n_words, skip_cls,
                  cont_cls, eof_cls, na_cap, static_cast<uint8_t*>(rows),
                  static_cast<uint8_t*>(mask), static_cast<int*>(spec_f),
-                 static_cast<uint8_t*>(row_bad), static_cast<uint8_t*>(na_over)};
+                 static_cast<uint8_t*>(row_bad), static_cast<uint8_t*>(na_flag),
+                 static_cast<unsigned*>(scratch)};
   return launch<true>(a, rows_per_block, static_cast<cudaStream_t>(stream));
 }
 
@@ -563,19 +587,21 @@ extern "C" int tt_scan_validate(
 }
 
 // rows [C, KL] u8, n_payload/n_total [C] i32 -> piece_start [C, K] u8,
-// row_bad [C] u8, na_over [C] u8 (the row has more non-ASCII char ends
-// before n_total than na_cap)
+// row_bad [C] u8, na_flag 0-d u8 (some row has more non-ASCII char ends
+// before n_total than na_cap); scratch as tt_scan_rows'
 extern "C" int tt_char_scan(
     const void* rows, int C, int KL, int K, const void* n_payload, const void* n_total,
     const void* page16, const void* mixed_rows, int n_mixed, const void* consts,
     int n_states, int n_words, int skip_cls, int cont_cls, int eof_cls, int na_cap,
-    int rows_per_block, void* mask, void* row_bad, void* na_over, void* stream) {
+    int rows_per_block, void* mask, void* row_bad, void* na_flag, void* scratch,
+    void* stream) {
   const Params a{static_cast<const uint8_t*>(rows), static_cast<long long>(C) * KL, nullptr,
                  static_cast<const int*>(n_payload), static_cast<const int*>(n_total), nullptr,
                  C, KL, K, rows_per_block, static_cast<const uint16_t*>(page16),
                  static_cast<const uint8_t*>(mixed_rows), n_mixed,
                  static_cast<const uint32_t*>(consts), n_states, n_words, skip_cls, cont_cls,
                  eof_cls, na_cap, nullptr, static_cast<uint8_t*>(mask), nullptr,
-                 static_cast<uint8_t*>(row_bad), static_cast<uint8_t*>(na_over)};
+                 static_cast<uint8_t*>(row_bad), static_cast<uint8_t*>(na_flag),
+                 static_cast<unsigned*>(scratch)};
   return launch<false>(a, rows_per_block, static_cast<cudaStream_t>(stream));
 }

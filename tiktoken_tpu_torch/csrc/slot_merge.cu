@@ -1,15 +1,14 @@
 // slot_merge: greedy BPE inside each piece's 16- or 64-byte slot, the
-// surviving tokens left-packed; and the per-piece token counts and combos
-// that the expansion into the token stream takes.
+// surviving tokens left-packed.
 //
 // Replaces (JAX package): ops/slot_merge.py make_slot_merge_fn, at W=16
 // (the short misses of B7) and W=64 (the long pieces of B8), with the B8
 // glue of ops/pipeline3.py build_pipeline3_fn and ops/pipeline2.py
 // build_pipeline2_fn that consumes it: the row-wise compaction of the
-// alive lanes, the long whole-piece hits' lane-0 select, the routes of
-// the slot counts to their pieces and the single / count / combo selects.
-// Plain PyTorch versions: ops/slot_merge.py slot_merge_packed,
-// ops/compaction.py piece_counts.
+// alive lanes and the long whole-piece hits' lane-0 select. (The routes
+// of the slot counts to their pieces and the single / count / combo
+// selects are the assembly's, csrc/compaction.cu tt_assemble.) Plain
+// PyTorch version: ops/slot_merge.py slot_merge_packed.
 //
 // What bounds it on the H100: the pair probes. Each reads a bucket row of
 // the pair table (128 bytes, one cache line; 32 MiB of rows for a
@@ -27,8 +26,6 @@
 //   n_real, read on the device: no slot at or past it is read or written,
 //   and nothing is zero-filled. A long slot with a whole-piece hit writes
 //   that one token.
-// - tt_piece_counts: one thread per catalog entry; a merged piece's count
-//   is a gather from its slot's count, so nothing is routed.
 
 #include <algorithm>
 
@@ -109,40 +106,6 @@ int launch_packed(const void* buckets, int n_buckets, unsigned seed, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void piece_counts_kernel(int p, const int* __restrict__ n_pieces,
-                                    const int* __restrict__ lens, const int* __restrict__ hit,
-                                    const int* __restrict__ words,
-                                    const int* __restrict__ byte_to_rank,
-                                    const int* __restrict__ mslot, const int* __restrict__ lslot,
-                                    const int* __restrict__ m_count, int m_cap,
-                                    const int* __restrict__ l_count, int l_cap,
-                                    int* __restrict__ counts, int* __restrict__ combo) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  int c = 0, cb = 0;
-  if (i < __ldg(n_pieces)) {
-    const int L = lens[i];
-    const int h = hit[i];
-    if (L == 1 || (L >= 2 && L <= SLOT && h != -1)) {  // a single: its token in-band, bit 31 set
-      c = 1;
-      cb = (L == 1 ? __ldg(byte_to_rank + (__ldg(words + 4ll * i) & 0xFF)) : h) |
-           static_cast<int>(0x80000000u);
-    } else {
-      const int ms = mslot[i];
-      const int ls = ms >= 0 ? -1 : lslot[i];
-      if (ms >= 0) {  // a short miss: its merged slot's count, tokens from slot * 16
-        c = ms < m_cap ? m_count[ms] : 0;
-        cb = min(ms, m_cap - 1) * SLOT;
-      } else if (ls >= 0) {  // a long piece: from m_cap * 16 + slot * 64
-        c = ls < l_cap ? l_count[ls] : 0;
-        cb = m_cap * SLOT + min(ls, l_cap - 1) * LONG_SLOT;
-      }
-    }
-  }
-  counts[i] = c;
-  combo[i] = cb;
-}
-
 }  // namespace
 
 // slot_bytes [M, W] u8 (W 16 or 64), lens [M] i32, n_real 0-d i32, hit [M]
@@ -164,22 +127,4 @@ extern "C" int tt_slot_merge_packed(int W, const void* buckets, int n_buckets, u
                                                         slot_bytes, lens, M, n_real, hit, tok_p,
                                                         count, st);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// the expansion's per-piece counts and combos of a catalog of p pieces
-// (n_pieces 0-d; lens, hit, mslot, lslot [p] i32; words [p, 4] i32) from
-// the merged slots' counts m_count [m_cap], l_count [l_cap]
-extern "C" int tt_piece_counts(int p, const void* n_pieces, const void* lens, const void* hit,
-                               const void* words, const void* byte_to_rank, const void* mslot,
-                               const void* lslot, const void* m_count, int m_cap,
-                               const void* l_count, int l_cap, void* counts, void* combo,
-                               void* stream) {
-  if (p <= 0 || m_cap <= 0 || l_cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  piece_counts_kernel<<<(p + TPB - 1) / TPB, TPB, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const int*>(n_pieces), static_cast<const int*>(lens),
-      static_cast<const int*>(hit), static_cast<const int*>(words),
-      static_cast<const int*>(byte_to_rank), static_cast<const int*>(mslot),
-      static_cast<const int*>(lslot), static_cast<const int*>(m_count), m_cap,
-      static_cast<const int*>(l_count), l_cap, static_cast<int*>(counts), static_cast<int*>(combo));
-  return static_cast<int>(cudaGetLastError());
 }

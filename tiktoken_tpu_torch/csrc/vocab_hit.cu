@@ -13,9 +13,12 @@
 // Design: one thread per piece, templated on the slot width. The hash
 // (_mix_words / _mix_words16) runs in native uint32. The thread walks the
 // bucket's slots and stops at the first whose length and words match, so
-// most misses read only the length lanes. len == 0 (dead lanes) and, for
-// the long table, len <= 16 never hit: MISS = 0xFFFFFFFF, exactly like
-// the JAX functions.
+// most misses read only the length lanes. A length outside the table's
+// range never hits and reads no bucket: len == 0 (dead lanes) and len > 16
+// for the short table (the chunk programs' long pieces, which JAX masks to
+// 0 before the call: no short entry has such a length, so the ids are the
+// same), len <= 16 for the long table; MISS = 0xFFFFFFFF, exactly like the
+// JAX functions.
 
 #include "common.cuh"
 
@@ -23,15 +26,16 @@ namespace {
 
 constexpr uint32_t MISS = 0xFFFFFFFFu;
 
-// NW words per key; SLOTS slots of (NW words, len, id) per WIDTH-lane row
-template <int NW, int SLOTS, int WIDTH, int MIN_LEN>
+// NW words per key; SLOTS slots of (NW words, len, id) per WIDTH-lane row;
+// keys of MIN_LEN < len <= MAX_LEN bytes
+template <int NW, int SLOTS, int WIDTH, int MIN_LEN, int MAX_LEN>
 __global__ void vocab_hit_kernel(const uint32_t* __restrict__ buckets, uint32_t mask,
                                  const uint32_t* __restrict__ words, const int* __restrict__ lens,
                                  int P, uint32_t seed, uint32_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= P) return;
   const int len = lens[i];
-  if (len <= MIN_LEN) {
+  if (len <= MIN_LEN || len > MAX_LEN) {
     out[i] = MISS;
     return;
   }
@@ -58,11 +62,12 @@ __global__ void vocab_hit_kernel(const uint32_t* __restrict__ buckets, uint32_t 
 
 }  // namespace
 
-// short table: words [P, 4] u32, lens [P] i32, buckets [nb, 64] u32
+// short table: words [P, 4] u32, lens [P] i32 (over 16: a miss), buckets
+// [nb, 64] u32
 extern "C" int tt_vocab_hit(const void* buckets, int n_buckets, const void* words,
                             const void* lens, int P, unsigned seed, void* out, void* stream) {
   if (P > 0)
-    vocab_hit_kernel<4, 10, 64, 0><<<(P + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+    vocab_hit_kernel<4, 10, 64, 0, 16><<<(P + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(buckets), static_cast<uint32_t>(n_buckets - 1),
         static_cast<const uint32_t*>(words), static_cast<const int*>(lens), P, seed,
         static_cast<uint32_t*>(out));
@@ -75,7 +80,7 @@ extern "C" int tt_long_vocab_hit(const void* buckets, int n_buckets, const void*
                                  const void* lens, int M, unsigned seed, void* out,
                                  void* stream) {
   if (M > 0)
-    vocab_hit_kernel<16, 7, 128, 16><<<(M + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+    vocab_hit_kernel<16, 7, 128, 16, 64><<<(M + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(buckets), static_cast<uint32_t>(n_buckets - 1),
         static_cast<const uint32_t*>(slot_bytes), static_cast<const int*>(lens), M, seed,
         static_cast<uint32_t*>(out));

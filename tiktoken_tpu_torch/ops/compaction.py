@@ -16,12 +16,12 @@ piece catalog with lengths, too-long row flags and padded words),
 ``catalog2`` (the v2 one, over a [C, K] start grid), ``compact_slots``
 (``compact`` with each entry's slot), ``compact_kinds`` (the short-miss
 and long compactions of one catalog, their masks included),
-``extract_slots`` (the v2 long-piece slots), ``expand_tokens`` (``expand``
-with the token fetch) and ``expand_tokens_rows`` (with the token count of
-each row). ``compact_rows`` (with per-row counts) is the left-pack of the
-plain ``slot_merge_packed``, and ``piece_counts`` (the expansion's
-per-piece counts and combos) the plain version of the ``slot_merge``
-kernel's second entry point.
+``extract_slots`` (the long-piece slots) and ``assemble`` (a chunk's
+per-piece counts and combos, ``piece_counts``; the token stream with the
+token count of each row, ``expand_tokens_rows``, which is ``expand`` with
+the token fetch, ``expand_tokens``, plus the row counts; and the header).
+``compact_rows`` (with per-row counts) is the left-pack of the plain
+``slot_merge_packed``.
 """
 
 from __future__ import annotations
@@ -307,10 +307,37 @@ def expand_tokens_rows(counts: torch.Tensor, combo: torch.Tensor, m_tok: torch.T
                        l_tok: torch.Tensor, out_size: int, starts: torch.Tensor, K: int,
                        n_rows: int):
     """``expand_tokens`` plus each row's token count: piece i adds
-    counts[i] to row min(starts[i] // K, n_rows - 1).
+    counts[i] to row min(max(starts[i], 0) // K, n_rows - 1).
     -> (tokens [out_size] i32, total i32, row_counts [n_rows] i32)."""
     tok, total = expand_tokens(counts, combo, m_tok, l_tok, out_size)
-    row = (starts // K).clamp(max=n_rows - 1).to(torch.int64)
+    row = (starts.clamp(min=0) // K).clamp(max=n_rows - 1).to(torch.int64)
     row_counts = torch.zeros(n_rows, dtype=torch.int64, device=counts.device)
     row_counts.scatter_add_(0, row, counts.to(torch.int64))
     return tok, total, row_counts.to(torch.int32)
+
+
+def assemble(n_pieces: torch.Tensor, lens: torch.Tensor, hit: torch.Tensor, words: torch.Tensor,
+             byte_to_rank: torch.Tensor, mslot: torch.Tensor, lslot: torch.Tensor,
+             m_count: torch.Tensor, l_count: torch.Tensor, m_tok: torch.Tensor,
+             l_tok: torch.Tensor, starts: torch.Tensor, row_bad: torch.Tensor,
+             n_miss: torch.Tensor, n_long: torch.Tensor, na_flag: torch.Tensor | None, *, K: int,
+             t_cap: int, p_limit: int, t_limit: int, full: bool):
+    """The assembly of a v3 or v2 chunk (B8, B10): ``piece_counts``, then
+    ``expand_tokens_rows`` into t_cap tokens over the rows of ``row_bad``
+    [C] (starts index rows of K columns), then the header: the row counts,
+    row_bad, (``full``, v3: n_pieces, n_miss, n_long,) n_tokens and the
+    overflow flag, n_pieces > p_limit | n_miss > m_cap | n_long > l_cap |
+    n_tokens > t_limit | na_flag (None: false), m_cap and l_cap the slot
+    counts' lengths. -> (tokens [t_cap] i32, header [2C+5] or [2C+2] i32)."""
+    C = row_bad.shape[0]
+    counts, combo = piece_counts(n_pieces, lens, hit, words, byte_to_rank, mslot, lslot, m_count,
+                                 l_count)
+    tok, total, row_counts = expand_tokens_rows(counts, combo, m_tok, l_tok, t_cap, starts, K, C)
+    overflow = ((n_pieces > p_limit) | (n_miss > m_count.shape[0]) | (n_long > l_count.shape[0])
+                | (total > t_limit))
+    if na_flag is not None:
+        overflow = overflow | na_flag
+    tail = [n_pieces, n_miss, n_long, total, overflow] if full else [total, overflow]
+    header = torch.cat([row_counts, row_bad.to(torch.int32),
+                        torch.stack([x.to(torch.int32) for x in tail])])
+    return tok, header

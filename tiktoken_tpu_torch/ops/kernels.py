@@ -10,17 +10,17 @@ bounds it and how its design answers that):
   and the v2 rows' char classes and scan without the handshake
   (``char_scan``), the two scans one kernel body;
 - ``compaction``: the v3 and v2 piece catalogs, the fused short-miss and
-  long compactions of a catalog (``compact_kinds``), slot extraction and
-  the expansion into the token stream with per-row counts, the catalogs,
-  the kind compactions and the expansion each one launch by decoupled
-  look-back;
+  long compactions of a catalog (``compact_kinds``), slot extraction (the
+  long pieces of both programs) and the assembly of a chunk: its per-piece
+  counts, the token stream, the row counts and the header
+  (``assemble``); the catalogs, the kind compactions and the assembly
+  each one launch by decoupled look-back;
 - ``vocab_hit``: whole-piece vocabulary hits, short and long tables;
 - ``slot_merge``: greedy BPE in 16- and 64-byte slots below a device
-  count, the tokens left-packed (``slot_merge_packed``), and the
-  expansion's per-piece counts and combos (``piece_counts``);
+  count, the tokens left-packed (``slot_merge_packed``);
 - ``byte_scan``: the byte-level scanners, the v2 sequential scan
-  (``seq_scan``), the v1 window scan (``window_scan``) and orbit
-  (``orbit``);
+  (``seq_scan``) and the v1 window scan with its orbit and row flags in
+  one launch (``window_orbit``);
 - ``grid_merge``: the v1 full-grid greedy BPE over a piece list sorted by
   length, and the row packing;
 - ``pair_count``: the hashed pair histogram of a token grid
@@ -36,7 +36,9 @@ one to its kernel's count in ``launches`` (and to its entry point's in
 device's current stream, whatever device is current when it is called:
 the entry point runs with that device made current. A wrapper runs the
 plain PyTorch version only when its tensors lie on the CPU; a CUDA tensor
-always goes to the kernel.
+always goes to the kernel. The chunk programs (``pipeline3.run_chunk``,
+``pipeline2.run_chunk2``, ``pipeline2.run_rows1``) call these entries and
+nothing else on the device.
 """
 
 from __future__ import annotations
@@ -92,10 +94,10 @@ _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uin
 _SIGNATURES = {
     "scan_rows": {
         "tt_scan_rows": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I,
-                         _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+                         _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
         "tt_scan_validate": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
         "tt_char_scan": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P, _P, _P],
+                         _P, _P, _P, _P, _P],
         "tt_scan_smem": [_I, _I, _I, _I, _I, _I],
         "tt_scan_max_smem": [],
     },
@@ -103,8 +105,8 @@ _SIGNATURES = {
         "tt_catalog": [_P, _I, _I, _P, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P],
         "tt_catalog2": [_P, _I, _I, _P, _P, _I, _P, _LL, _P, _P, _P, _P, _P, _P, _P],
         "tt_extract_slots": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
-        "tt_expand_tokens_rows": [_P, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _I, _I, _P, _P, _P,
-                                  _P, _P],
+        "tt_assemble": [_P, _P, _P, _P, _P, _P, _P, _LL, _P, _I, _P, _I, _P, _P, _LL, _P, _I,
+                        _P, _I, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P],
         "tt_compact_kinds": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _P, _P, _P],
         "tt_scratch_words": [_LL, _LL],
@@ -115,14 +117,13 @@ _SIGNATURES = {
     },
     "slot_merge": {
         "tt_slot_merge_packed": [_I, _P, _I, _U, _P, _P, _P, _I, _P, _P, _P, _P, _P],
-        "tt_piece_counts": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     },
     "byte_scan": {
         "tt_seq_scan": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-        "tt_window_scan": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _LL, _P, _P, _P, _P],
+        "tt_window_orbit": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _LL, _P, _P, _P,
+                            _P],
         "tt_seq_smem": [_I, _I, _I, _I],
         "tt_byte_max_smem": [],
-        "tt_orbit": [_P, _P, _P, _I, _I, _P, _P, _P],
     },
     "grid_merge": {
         "tt_grid_merge": [_P, _I, _U, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
@@ -227,6 +228,26 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> int
     return t.data_ptr()
 
 
+# Scratch of the one-launch reductions, by (device, stream): 4 int32 words,
+# zeroed once when made (copied from the host: no kernel runs), that each
+# launch leaves zero again: word 0 the ticket that elects the last block to
+# arrive, word 1 the scans' non-ASCII flags, words 2-3 tt_hist_argmax's
+# running maximum or tt_window_orbit's count. Launches on one stream run
+# one after the other, so they share it; it is kept per stream because two
+# launches in flight on two streams must never share a ticket (their blocks
+# would count as one grid's). A launch that the entry point reports failed
+# never ran, and leaves it zero.
+_stream_scratch: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _scratch(dev: torch.device) -> int:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    t = _stream_scratch.get(key)
+    if t is None:
+        t = _stream_scratch[key] = torch.zeros(4, dtype=torch.int32).to(dev)
+    return t.data_ptr()
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
@@ -294,10 +315,10 @@ def scan_rows(tables: ScanTables, flat, row_off, n_payload, n_total, is_doc_end,
     mask = torch.empty((C, KP), dtype=b, device=dev)
     spec_f = torch.empty(C, dtype=i32, device=dev)
     row_bad = torch.empty(C, dtype=b, device=dev)
-    na_over = torch.empty(C, dtype=b, device=dev)
+    na_flag = torch.empty((), dtype=b, device=dev)
     _call("scan_rows", "tt_scan_rows", dev, *args, rows.data_ptr(), mask.data_ptr(),
-          spec_f.data_ptr(), row_bad.data_ptr(), na_over.data_ptr())
-    return rows, mask, spec_f, row_bad, na_over.any()
+          spec_f.data_ptr(), row_bad.data_ptr(), na_flag.data_ptr(), _scratch(dev))
+    return rows, mask, spec_f, row_bad, na_flag
 
 
 def scan_validate(mask, spec_f, row_bad, n_payload, prev_same_doc, emit):
@@ -339,10 +360,10 @@ def char_scan(tables: ScanTables, rows, n_payload, n_total, *, K: int, na_frac: 
     ]
     mask = torch.empty((C, K), dtype=torch.bool, device=dev)
     row_bad = torch.empty(C, dtype=torch.bool, device=dev)
-    na_over = torch.empty(C, dtype=torch.bool, device=dev)
+    na_flag = torch.empty((), dtype=torch.bool, device=dev)
     _call("scan_rows", "tt_char_scan", dev, *args, mask.data_ptr(), row_bad.data_ptr(),
-          na_over.data_ptr())
-    return mask, row_bad, na_over.any()
+          na_flag.data_ptr(), _scratch(dev))
+    return mask, row_bad, na_flag
 
 
 # ---------------------------------------------------------------------------
@@ -481,30 +502,6 @@ def slot_merge_packed(buckets, byte_to_rank, slot_bytes, lens, seed: int, n_real
     return tok_p, count
 
 
-def piece_counts(n_pieces, lens, hit, words, byte_to_rank, mslot, lslot, m_count, l_count):
-    """B8's per-piece token counts and combos -> (counts [p] i32, combo [p]
-    i32); see ``compaction.piece_counts``."""
-    if _on_cpu(lens):
-        return compaction.piece_counts(n_pieces, lens, hit, words, byte_to_rank, mslot, lslot,
-                                       m_count, l_count)
-    dev = _dev(lens)
-    (p,) = lens.shape
-    (m_cap,), (l_cap,) = m_count.shape, l_count.shape
-    args = [p, _check("n_pieces", n_pieces, torch.int32, (), dev),
-            _check("lens", lens, torch.int32, (p,), dev),
-            _check("hit", hit, torch.int32, (p,), dev),
-            _check("words", words, torch.int32, (p, 4), dev),
-            _check("byte_to_rank", byte_to_rank, torch.int32, (256,), dev),
-            _check("mslot", mslot, torch.int32, (p,), dev),
-            _check("lslot", lslot, torch.int32, (p,), dev),
-            _check("m_count", m_count, torch.int32, (m_cap,), dev), m_cap,
-            _check("l_count", l_count, torch.int32, (l_cap,), dev), l_cap]
-    counts = torch.empty(p, dtype=torch.int32, device=dev)
-    combo = torch.empty(p, dtype=torch.int32, device=dev)
-    _call("slot_merge", "tt_piece_counts", dev, *args, counts.data_ptr(), combo.data_ptr())
-    return counts, combo
-
-
 def catalog2(piece_start, n_payload, rows, row_bad, p_cap: int):
     """B10 catalog -> (starts [p_cap] i32, words [p_cap, 4] i32, lens
     [p_cap] i32, row_bad [C] bool, n_pieces i32); see
@@ -547,27 +544,41 @@ def extract_slots(rows, starts, lens, K: int):
     return out
 
 
-def expand_tokens_rows(counts, combo, m_tok, l_tok, out_size: int, starts, K: int,
-                       n_rows: int):
-    """B10 assembly -> (tokens [out_size] i32, total i32, row_counts
-    [n_rows] i32); see ``compaction.expand_tokens_rows``."""
-    if _on_cpu(counts):
-        return compaction.expand_tokens_rows(counts, combo, m_tok, l_tok, out_size, starts, K,
-                                             n_rows)
-    dev = _dev(counts)
-    (n,) = counts.shape
-    args = [_check("counts", counts, torch.int32, (n,), dev),
-            _check("combo", combo, torch.int32, (n,), dev), n,
-            _check("m_tok", m_tok, torch.int32, None, dev), m_tok.numel(),
-            _check("l_tok", l_tok, torch.int32, None, dev), l_tok.numel(), out_size,
-            _check("starts", starts, torch.int32, (n,), dev), K, n_rows]
-    tok = torch.empty(out_size, dtype=torch.int32, device=dev)
-    total = torch.empty((), dtype=torch.int32, device=dev)
-    row_counts = torch.empty(n_rows, dtype=torch.int32, device=dev)
-    scratch = _tile_scratch(n, dev, 4 * n_rows)
-    _call("compaction", "tt_expand_tokens_rows", dev, *args, tok.data_ptr(), total.data_ptr(),
-          row_counts.data_ptr(), scratch.data_ptr())
-    return tok, total, row_counts
+def assemble(n_pieces, lens, hit, words, byte_to_rank, mslot, lslot, m_count, l_count, m_tok,
+             l_tok, starts, row_bad, n_miss, n_long, na_flag, *, K: int, t_cap: int,
+             p_limit: int, t_limit: int, full: bool):
+    """B8 / B10 assembly -> (tokens [t_cap] i32, header [2C+5] (full) or
+    [2C+2] i32); see ``compaction.assemble``. ``na_flag``: a 0-d bool, or
+    None for a scan without the non-ASCII cap."""
+    if _on_cpu(lens):
+        return compaction.assemble(n_pieces, lens, hit, words, byte_to_rank, mslot, lslot,
+                                   m_count, l_count, m_tok, l_tok, starts, row_bad, n_miss,
+                                   n_long, na_flag, K=K, t_cap=t_cap, p_limit=p_limit,
+                                   t_limit=t_limit, full=full)
+    dev = _dev(lens)
+    (p,) = lens.shape
+    (m_cap,), (l_cap,) = m_count.shape, l_count.shape
+    (C,) = row_bad.shape
+    i32 = torch.int32
+    args = [_check("n_pieces", n_pieces, i32, (), dev), _check("lens", lens, i32, (p,), dev),
+            _check("hit", hit, i32, (p,), dev), _check("words", words, i32, (p, 4), dev),
+            _check("byte_to_rank", byte_to_rank, i32, (256,), dev),
+            _check("mslot", mslot, i32, (p,), dev), _check("lslot", lslot, i32, (p,), dev), p,
+            _check("m_count", m_count, i32, (m_cap,), dev), m_cap,
+            _check("l_count", l_count, i32, (l_cap,), dev), l_cap,
+            _check("m_tok", m_tok, i32, (m_cap, pieces.SLOT), dev),
+            _check("l_tok", l_tok, i32, (l_cap, pieces.LONG_SLOT), dev), t_cap,
+            _check("starts", starts, i32, (p,), dev), K,
+            _check("row_bad", row_bad, torch.bool, (C,), dev), C,
+            _check("n_miss", n_miss, i32, (), dev), _check("n_long", n_long, i32, (), dev),
+            None if na_flag is None else _check("na_flag", na_flag, torch.bool, (), dev),
+            p_limit, t_limit, int(full)]
+    tok = torch.empty(t_cap, dtype=i32, device=dev)
+    header = torch.empty(2 * C + (5 if full else 2), dtype=i32, device=dev)
+    scratch = _tile_scratch(p, dev, 4 * C)
+    _call("compaction", "tt_assemble", dev, *args, tok.data_ptr(), header.data_ptr(),
+          scratch.data_ptr())
+    return tok, header
 
 
 # ---------------------------------------------------------------------------
@@ -609,40 +620,34 @@ def seq_scan(packed, rows, n_payload, n_total, *, K: int, hot: int = 0):
     return mask, bad
 
 
-def window_scan(packed, rows, n_total, *, K: int, window: int = window_scan_mod.DEFAULT_WINDOW):
-    """B11 -> (hop [C, K] i32, unresolved [C, K] bool); see
-    ``window_scan.window_scan``."""
+def window_orbit(packed, rows, n_payload, n_total, *, K: int,
+                 window: int = window_scan_mod.DEFAULT_WINDOW, hot: int = 0):
+    """B11 + B12 + the v1 row flags -> (piece_start [C, K] bool, row_bad [C]
+    bool); see ``window_scan.window_orbit``. ``packed``'s first ``hot``
+    states are closed under ASCII bytes and are read from shared memory (at
+    most HOT_ROWS_MAX). A geometry that does not fit in shared memory makes
+    the entry fail before it launches, and this raises."""
     if _on_cpu(rows):
-        return window_scan_mod.window_scan(packed, rows, n_total, K=K, window=window)
+        return window_scan_mod.window_orbit(packed, rows, n_payload, n_total, K=K, window=window,
+                                            hot=hot)
     dev = _dev(rows)
     C, KL = rows.shape
     S_, NC = packed.shape
+    if not 0 <= hot <= S_:
+        raise ValueError(f"hot={hot} must be in 0..{S_}")
+    if packed.data_ptr() % 16:
+        raise ValueError("the byte scan table must be 16-byte aligned")
+    hot = min(hot, HOT_ROWS_MAX)
     w1 = min(window_scan_mod.FIRST_WINDOW, window)
     u_cap = max(128, C * K // 32) if w1 < window else C * K
-    args = [_check("packed", packed, torch.int32, (S_, NC), dev), S_, NC,
-            _check("rows", rows, torch.uint8, (C, KL), dev), KL,
-            _check("n_total", n_total, torch.int32, (C,), dev), C, K, window, w1, u_cap]
-    hop = torch.empty((C, K), dtype=torch.int32, device=dev)
-    unresolved = torch.empty((C, K), dtype=torch.bool, device=dev)
-    counter = torch.empty((), dtype=torch.int64, device=dev)
-    _call("byte_scan", "tt_window_scan", dev, *args, hop.data_ptr(), unresolved.data_ptr(),
-          counter.data_ptr())
-    return hop, unresolved
-
-
-def orbit(hop, unresolved, valid_len):
-    """B12 -> (piece_start [C, K] bool, row_bad [C] bool); see
-    ``window_scan.orbit``."""
-    if _on_cpu(hop):
-        return window_scan_mod.orbit(hop, unresolved, valid_len)
-    dev = _dev(hop)
-    C, K = hop.shape
-    args = [_check("hop", hop, torch.int32, (C, K), dev),
-            _check("unresolved", unresolved, torch.bool, (C, K), dev),
-            _check("valid_len", valid_len, torch.int32, (C,), dev), C, K]
+    args = [_check("packed", packed, torch.int32, (S_, NC), dev), S_, NC, hot,
+            _check("rows", rows, torch.uint8, (C, KL), dev), C, KL, K,
+            _check("n_payload", n_payload, torch.int32, (C,), dev),
+            _check("n_total", n_total, torch.int32, (C,), dev), window, w1, u_cap]
     mask = torch.empty((C, K), dtype=torch.bool, device=dev)
     bad = torch.empty(C, dtype=torch.bool, device=dev)
-    _call("byte_scan", "tt_orbit", dev, *args, mask.data_ptr(), bad.data_ptr())
+    _call("byte_scan", "tt_window_orbit", dev, *args, mask.data_ptr(), bad.data_ptr(),
+          _scratch(dev))
     return mask, bad
 
 
@@ -682,15 +687,6 @@ def grid_merge(buckets, byte_to_rank, rows, piece_start, n_payload, seed: int):
 # pair_count
 # ---------------------------------------------------------------------------
 
-# tt_hist_argmax's scratch by (device, stream): 4 int32 words, the ticket
-# that elects the last block to arrive and the blocks' running maximum,
-# zeroed once when made; each call's last block sets both back to 0, so no
-# call pays a memset. It is kept per stream because two calls in flight on
-# two streams must never share a ticket: their blocks would count as one
-# grid's, and one call would read the other's maximum.
-_argmax_scratch: dict[tuple[torch.device, int], torch.Tensor] = {}
-
-
 def pair_hist(tokens, alive, piece_start, bits: int):
     """B15 -> hist [2^bits] i32 of the counted pairs' bins; see
     ``pair_count.pair_hist``."""
@@ -721,15 +717,9 @@ def hist_argmax(hist):
     (n,) = hist.shape
     if n == 0:
         raise ValueError("hist_argmax of an empty histogram")
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    scratch = _argmax_scratch.get(key)
-    if scratch is None:
-        scratch = _argmax_scratch[key] = torch.zeros(4, dtype=torch.int32, device=dev)
     out = torch.empty(2, dtype=torch.int32, device=dev)
-    # a launch that the entry point reports failed never ran: the scratch
-    # stays zero for the next call
     _call("pair_count", "tt_hist_argmax", dev, _check("hist", hist, torch.int32, (n,), dev), n,
-          scratch.data_ptr(), out.data_ptr())
+          _scratch(dev), out.data_ptr())
     return out[0], out[1]
 
 
@@ -739,9 +729,8 @@ def hist_argmax(hist):
 KERNEL_OPS = SimpleNamespace(
     scan_rows=scan_rows, scan_validate=scan_validate, char_scan=char_scan, catalog=catalog,
     compact_kinds=compact_kinds, vocab_hit=vocab_hit, long_vocab_hit=long_vocab_hit,
-    slot_merge_packed=slot_merge_packed, piece_counts=piece_counts, catalog2=catalog2,
-    extract_slots=extract_slots, expand_tokens_rows=expand_tokens_rows,
-    seq_scan=seq_scan, window_scan=window_scan, orbit=orbit, grid_merge=grid_merge,
+    slot_merge_packed=slot_merge_packed, catalog2=catalog2, extract_slots=extract_slots,
+    assemble=assemble, seq_scan=seq_scan, window_orbit=window_orbit, grid_merge=grid_merge,
     pair_hist=pair_hist, hist_argmax=hist_argmax,
 )
 PLAIN_OPS = SimpleNamespace(
@@ -749,10 +738,8 @@ PLAIN_OPS = SimpleNamespace(
     char_scan=sweep_scan.char_scan_rows, catalog=compaction.catalog,
     compact_kinds=compaction.compact_kinds, vocab_hit=pieces.vocab_hit,
     long_vocab_hit=pieces.long_vocab_hit, slot_merge_packed=slot_merge_mod.slot_merge_packed,
-    piece_counts=compaction.piece_counts, catalog2=compaction.catalog2,
-    extract_slots=compaction.extract_slots,
-    expand_tokens_rows=compaction.expand_tokens_rows, seq_scan=window_scan_mod.seq_scan,
-    window_scan=window_scan_mod.window_scan, orbit=window_scan_mod.orbit,
-    grid_merge=merge.grid_merge, pair_hist=pair_count_mod.pair_hist,
-    hist_argmax=pair_count_mod.hist_argmax,
+    catalog2=compaction.catalog2, extract_slots=compaction.extract_slots,
+    assemble=compaction.assemble, seq_scan=window_scan_mod.seq_scan,
+    window_orbit=window_scan_mod.window_orbit, grid_merge=merge.grid_merge,
+    pair_hist=pair_count_mod.pair_hist, hist_argmax=pair_count_mod.hist_argmax,
 )

@@ -227,7 +227,7 @@ def mix_words(words: torch.Tensor, length: torch.Tensor, seed: int) -> torch.Ten
 
 
 def _probe(buckets: torch.Tensor, words: torch.Tensor, lens: torch.Tensor,
-           seed: int, n_slots: int, min_len: int) -> torch.Tensor:
+           seed: int, n_slots: int, min_len: int, max_len: int) -> torch.Tensor:
     nw = words.shape[1]
     stride = nw + 2  # (words, len, id) per slot
     w = words.to(torch.int64) & M32
@@ -237,7 +237,7 @@ def _probe(buckets: torch.Tensor, words: torch.Tensor, lens: torch.Tensor,
     out = torch.full(l.shape, int(MISS), dtype=torch.int64, device=words.device)
     for s in range(n_slots - 1, -1, -1):  # first matching slot wins
         c = stride * s
-        ok = (rows[:, c + nw] == l) & (l > min_len)
+        ok = (rows[:, c + nw] == l) & (l > min_len) & (l <= max_len)
         ok &= (rows[:, c : c + nw] == w).all(dim=1)
         out = torch.where(ok, rows[:, c + nw + 1], out)
     return out.to(torch.int32)
@@ -246,8 +246,10 @@ def _probe(buckets: torch.Tensor, words: torch.Tensor, lens: torch.Tensor,
 def vocab_hit(buckets: torch.Tensor, words: torch.Tensor, lens: torch.Tensor,
               seed: int) -> torch.Tensor:
     """(buckets [nb, 64] i32, words [P, 4] i32, lens [P] i32) -> hit ids
-    [P] i32 (uint32 bit patterns; MISS if none, and for len == 0)."""
-    return _probe(buckets, words, lens, seed, VOCAB_BUCKET_SLOTS, 0)
+    [P] i32 (uint32 bit patterns; MISS if none, and for len == 0 and len >
+    SLOT: the chunk programs pass every piece's length, JAX's the lengths
+    over SLOT masked to 0, and no short entry has such a length)."""
+    return _probe(buckets, words, lens, seed, VOCAB_BUCKET_SLOTS, 0, SLOT)
 
 
 def long_vocab_hit(buckets: torch.Tensor, slot_bytes: torch.Tensor,
@@ -256,7 +258,7 @@ def long_vocab_hit(buckets: torch.Tensor, slot_bytes: torch.Tensor,
     lens [M] i32) -> hit ids [M] i32 (MISS unless SLOT < len <= LONG_SLOT
     and the bytes are a vocabulary token)."""
     words = slot_bytes.contiguous().view(torch.int32)  # [M, 16] little-endian
-    return _probe(buckets, words, lens, seed, LONG_BUCKET_SLOTS, SLOT)
+    return _probe(buckets, words, lens, seed, LONG_BUCKET_SLOTS, SLOT, LONG_SLOT)
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,7 @@ without ``pack24``, stage for stage:
         -- vocab hits --> single-token pieces
         -- short misses: compact, slot merge (W=16), left-packed
         -- long pieces: compact, extract, long hits, slot merge (W=64)
-        -- piece_counts, expand_tokens_rows --> flat token stream + per-row
-           counts
+        -- assemble --> flat token stream, per-row counts, header
 
     header [2C+2] i32 = [row_counts | row_bad | n_tokens | overflow]
 
@@ -28,14 +27,14 @@ a piece longer than LONG_SLOT is flagged bad. Tokens come back as int32
 bit patterns (no 24-bit packing).
 
 v1 (``run_rows1``), the counterpart of the JAX ``build_pipeline_fn``:
-window scan, orbit, ``row_bad``, full-grid merge and row packing. It
-reads the byte-level scan table.
+window scan, orbit and ``row_bad`` (one entry, ``window_orbit``),
+full-grid merge and row packing. It reads the byte-level scan table.
 
-Glue that stays PyTorch ops on the device: the short-piece lengths of the
-vocab hits and the header concat. The scans read the row bytes and the
-merge the payload lengths directly; the slot merges read the miss and
-long counts on the device and left-pack their tokens, and
-``piece_counts`` gathers each merged piece's count from its slot.
+No PyTorch op runs on the device between the kernels: the scans read the
+row bytes and the merge the payload lengths directly; the slot merges
+read the miss and long counts on the device and left-pack their tokens,
+and ``assemble`` gathers each merged piece's count from its slot and
+writes the header.
 """
 
 from __future__ import annotations
@@ -43,7 +42,6 @@ from __future__ import annotations
 import torch
 
 from tiktoken_tpu_torch.ops.kernels import KERNEL_OPS
-from tiktoken_tpu_torch.ops.pieces import SLOT
 from tiktoken_tpu_torch.ops.window_scan import DEFAULT_WINDOW
 
 LOOK = 16  # true continuation bytes per row
@@ -64,7 +62,7 @@ def run_chunk2(t, rows, n_payload, n_total, *, scanner: str = "char", ops=KERNEL
     device, with ``t`` the engine's tables (``ChunkTables``, with
     ``byte_scan`` set for ``scanner="byte"``) -> (flat_tok [t_cap] i32,
     header [2C+2] i32). ``ops``: the kernels (``KERNEL_OPS``) or their
-    plain versions (``PLAIN_OPS``)."""
+    plain versions (``PLAIN_OPS``); nothing else runs on the device."""
     if scanner not in SCANNERS:
         raise ValueError(f"scanner must be 'char' or 'byte', got {scanner!r}")
     C, KL = rows.shape
@@ -78,14 +76,14 @@ def run_chunk2(t, rows, n_payload, n_total, *, scanner: str = "char", ops=KERNEL
     else:
         piece_start, row_bad = ops.seq_scan(t.byte_scan, rows, n_payload, n_total, K=K,
                                              hot=t.byte_hot)
-        na_overflow = False
+        na_overflow = None  # the byte scanner has no non-ASCII cap
 
     # ---- B10: catalog, words, too-long rows ----------------------------------
     starts, words, lens, row_bad, n_pieces = ops.catalog2(piece_start, n_payload, rows,
                                                           row_bad, p_cap)
 
     # ---- whole-piece hits ------------------------------------------------------
-    hit = ops.vocab_hit(t.vocab_buckets, words, torch.where(lens <= SLOT, lens, 0), t.vocab_seed)
+    hit = ops.vocab_hit(t.vocab_buckets, words, lens, t.vocab_seed)  # none over 16 bytes
 
     # ---- the short-miss and long compactions, one pass ---------------------------
     (m_words, m_lens, _), n_miss, mslot, (l_starts, l_lens, _), n_long, lslot = \
@@ -103,19 +101,10 @@ def run_chunk2(t, rows, n_payload, n_total, *, scanner: str = "char", ops=KERNEL
     l_tok, l_count = ops.slot_merge_packed(t.pair_buckets, t.byte_to_rank, l_bytes, l_lens,
                                            t.pair_seed, n_long, hit=l_hit)
 
-    # ---- assembly: per-piece counts, the token stream, per-row counts --------------
-    counts, combo = ops.piece_counts(n_pieces, lens, hit, words, t.byte_to_rank, mslot, lslot,
-                                     m_count, l_count)
-    flat_tok, n_tokens, row_counts = ops.expand_tokens_rows(counts, combo, m_tok, l_tok, t_cap,
-                                                            starts, K, C)
-
-    overflow = ((n_pieces > p_cap - 1) | (n_miss > m_cap) | (n_long > l_cap)
-                | (n_tokens > t_cap - 1) | na_overflow)
-    header = torch.cat([
-        row_counts, row_bad.to(torch.int32),
-        torch.stack([n_tokens, overflow.to(torch.int32)]).to(torch.int32),
-    ])
-    return flat_tok, header
+    # ---- assembly: per-piece counts, the token stream, per-row counts, header ---------
+    return ops.assemble(n_pieces, lens, hit, words, t.byte_to_rank, mslot, lslot, m_count,
+                        l_count, m_tok, l_tok, starts, row_bad, n_miss, n_long, na_overflow,
+                        K=K, t_cap=t_cap, p_limit=p_cap - 1, t_limit=t_cap - 1, full=False)
 
 
 def run_rows1(t, rows, n_payload, n_total, *, ops=KERNEL_OPS):
@@ -126,8 +115,8 @@ def run_rows1(t, rows, n_payload, n_total, *, ops=KERNEL_OPS):
     K = rows.shape[1] - LOOK
     # window lookahead past the row reads EOF (only matches already dead
     # by then can reach it)
-    hop, unresolved = ops.window_scan(t.byte_scan, rows, n_total, K=K, window=DEFAULT_WINDOW)
-    piece_start, row_bad = ops.orbit(hop, unresolved, n_payload)
+    piece_start, row_bad = ops.window_orbit(t.byte_scan, rows, n_payload, n_total, K=K,
+                                            window=DEFAULT_WINDOW, hot=t.byte_hot)
     packed, counts, rounds = ops.grid_merge(t.pair_buckets, t.byte_to_rank, rows, piece_start,
                                             n_payload, t.pair_seed)
     return packed, counts, rounds, row_bad

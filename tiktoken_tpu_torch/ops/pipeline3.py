@@ -16,8 +16,8 @@ stage can be diffed against its JAX twin:
 Tokens come back as uint32 (int32 bit patterns), so there is no 24-bit
 packing; and the catalog reads each piece's four slot words straight from
 the row bytes, so there is no [C, KL] word grid. The stages run as the
-four kernels of ``ops/kernels.py``; what stays between them as PyTorch
-glue on the device is listed in ``run_chunk``.
+kernels of ``ops/kernels.py`` and nothing else: no PyTorch op runs on the
+device between them (``run_chunk``).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from tiktoken_tpu_torch import native
 from tiktoken_tpu_torch.ops.charclass import CharClassTables
 from tiktoken_tpu_torch.ops.kernels import KERNEL_OPS
 from tiktoken_tpu_torch.ops.pair_table import PairTable
-from tiktoken_tpu_torch.ops.pieces import LONG_SLOT, SLOT, LongVocabTable, VocabTable
+from tiktoken_tpu_torch.ops.pieces import LongVocabTable, VocabTable
 from tiktoken_tpu_torch.ops.sweep_scan import ScanTables, build_scan_consts, scan_tables
 
 K_DEFAULT = 176  # nominal payload bytes per row (cuts land in [K-backup, K])
@@ -268,27 +268,14 @@ def upload_tables(char: CharClassTables, pair: PairTable, vocab: VocabTable,
     )
 
 
-def extract_long(rows: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """[l_cap, 64] u8 long-piece slots from the row grid, zero past each
-    piece's length (glue: a gather over the few long pieces)."""
-    flat = rows.reshape(-1)
-    idx = starts.to(torch.int64)[:, None] + torch.arange(LONG_SLOT, device=rows.device)[None, :]
-    keep = (idx < flat.numel()) & (torch.arange(LONG_SLOT, device=rows.device)[None, :]
-                                   < lens[:, None])
-    return torch.where(keep, flat[idx.clamp(max=flat.numel() - 1)], 0).to(torch.uint8)
-
-
 def run_chunk(t: ChunkTables, flat, row_off, n_payload, n_total, is_doc_end,
               prev_same_doc, emit, *, K: int, worst_case: bool = False, ops=KERNEL_OPS):
     """One chunk: (flat [S] u8, row_off, n_payload, n_total [C] i32,
     is_doc_end, prev_same_doc, emit [C] bool) on one device -> (flat_tok
     [t_cap] i32, header [2C+5] i32). ``ops`` is the set of stage
     operations: the kernels (``KERNEL_OPS``) or their plain versions
-    (``PLAIN_OPS``, the chip check's yardstick).
-
-    Glue that stays as PyTorch ops on the device: ``extract_long`` (a
-    gather over the few long pieces), the short-piece lengths of the vocab
-    hits and the header concat.
+    (``PLAIN_OPS``, the chip check's yardstick). It calls ``ops`` and
+    nothing else on the device.
     """
     C = row_off.shape[0]
     KP, KL = row_geometry(K)
@@ -305,7 +292,8 @@ def run_chunk(t: ChunkTables, flat, row_off, n_payload, n_total, is_doc_end,
     starts, words, lens, row_bad, n_pieces = ops.catalog(rows, mask3, spec_f, row_bad, p_cap)
 
     # ---- B6: whole-piece hits -------------------------------------------------
-    hit = ops.vocab_hit(t.vocab_buckets, words, torch.where(lens <= SLOT, lens, 0), t.vocab_seed)
+    # (a piece over 16 bytes never hits the short table)
+    hit = ops.vocab_hit(t.vocab_buckets, words, lens, t.vocab_seed)
 
     # ---- B7/B8: the short-miss and long compactions, one pass ---------------
     (m_words, m_lens, _), n_miss, mslot, (l_starts, l_lens, _), n_long, lslot = \
@@ -316,23 +304,16 @@ def run_chunk(t: ChunkTables, flat, row_off, n_payload, n_total, is_doc_end,
                                            m_words.view(torch.uint8), m_lens, t.pair_seed, n_miss)
 
     # ---- B8: long pieces ------------------------------------------------------
-    l_bytes = extract_long(rows, l_starts, l_lens)
+    # starts index rows of KL columns; a long piece starts below KP and
+    # ends by KP + LONG_SLOT <= KL, so its bytes lie in its row
+    l_bytes = ops.extract_slots(rows, l_starts, l_lens, KL)
     # whole-piece hits for 17..64-byte tokens skip the merge (reference
     # vocab-as-cache semantics, src/lib.rs:367-369)
     l_hit = ops.long_vocab_hit(t.long_buckets, l_bytes, l_lens, t.long_seed)
     l_tok, l_count = ops.slot_merge_packed(t.pair_buckets, t.byte_to_rank, l_bytes, l_lens,
                                            t.pair_seed, n_long, hit=l_hit)
 
-    # ---- B8: per-piece counts, the token stream and each row's count --------
-    counts, combo = ops.piece_counts(n_pieces, lens, hit, words, t.byte_to_rank, mslot, lslot,
-                                     m_count, l_count)
-    flat_tok, n_tokens, row_counts = ops.expand_tokens_rows(counts, combo, m_tok, l_tok, t_cap,
-                                                            starts, KL, C)
-
-    overflow = ((n_pieces > p_cap) | (n_miss > m_cap) | (n_long > l_cap)
-                | (n_tokens > t_cap) | na_overflow)
-    header = torch.cat([
-        row_counts, row_bad.to(torch.int32),
-        torch.stack([n_pieces, n_miss, n_long, n_tokens, overflow.to(torch.int32)]).to(torch.int32),
-    ])
-    return flat_tok, header
+    # ---- B8: per-piece counts, the token stream, each row's count, header ---
+    return ops.assemble(n_pieces, lens, hit, words, t.byte_to_rank, mslot, lslot, m_count,
+                        l_count, m_tok, l_tok, starts, row_bad, n_miss, n_long, na_overflow,
+                        K=KL, t_cap=t_cap, p_limit=p_cap, t_limit=t_cap, full=True)

@@ -13,7 +13,8 @@ contract (reference: src/lib.rs:363-365 find_iter semantics; host spec
   whether it is still unresolved; past ``u_cap`` positions alive after
   FIRST_WINDOW bytes, every position is unresolved;
 - ``orbit`` (v1): the piece starts of each row, the chain 0, f(0), ... of
-  f(p) = p + hop[p], and the rows the device cannot resolve exactly.
+  f(p) = p + hop[p], and the rows the device cannot resolve exactly;
+- ``window_orbit`` (v1): the two, as the kernel runs them in one launch.
 
 Tables: ``pack_trans_accept`` fuses the next state and its accept rewind
 into one int32 per (state, class); ``expand_packed_to_bytes`` indexes it
@@ -326,3 +327,13 @@ def orbit(hop: torch.Tensor, unresolved: torch.Tensor, valid_len: torch.Tensor):
         cur = nxt.clamp(max=K - 1)
     row_bad = (mask & (unresolved | (hop <= 0))).any(dim=1)
     return mask, row_bad
+
+
+def window_orbit(packed: torch.Tensor, rows: torch.Tensor, n_payload: torch.Tensor,
+                 n_total: torch.Tensor, *, K: int, window: int = DEFAULT_WINDOW, hot: int = 0):
+    """B11 + B12 with the v1 row flags (the JAX ``build_pipeline_fn``):
+    ``window_scan`` of the rows, then ``orbit`` of its hops below
+    n_payload. -> (piece_start [C, K] bool, row_bad [C] bool). ``hot``, the
+    kernel's count of shared-memory states, changes nothing here."""
+    hop, unresolved = window_scan(packed, rows, n_total, K=K, window=window)
+    return orbit(hop, unresolved, n_payload)
