@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. the card's name and power limit; the build of the seven CUDA kernels,
-   none of whose libraries may export an entry point that a redesign took
-   out (``GONE_ENTRIES``);
+   none of whose libraries may export an entry point that was taken out
+   (``GONE_ENTRIES``);
 2. the bench vocabulary (assets/bench_vocab2_100000.tiktoken, 100,000
    ranks) with the o200k split pattern, its tables built and uploaded:
    the pair, short-vocab and long-vocab tables through the disk cache
@@ -145,13 +145,24 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    one-device rows (and their ``CorpusStats``), its histogram phase 8's,
    and every rank must launch each path's kernels on its GPU. It prints
    the cross-process MB/s and each rank's host-clock phases.
+11. the installed wheel: ``setup.py build_ext`` builds the wheel's
+   compiled parts into a temporary directory (timed), which must hold the
+   native core and the seven kernel libraries under their digest names;
+   the port's two packages are copied beside that ``prebuilt/``, and a
+   fresh process where neither g++ nor nvcc is found (neither on PATH,
+   ``_build``'s nvcc search pointed away) and the disk cache is empty runs
+   phase 5's v3 call on ``cuda:0`` with ``strategy="device"`` (path
+   ``wheel_device``) and ``"auto"`` (``wheel_auto``). Each must equal phase
+   5's ids and launch every v3 kernel; every library must be loaded from
+   ``prebuilt/``, none built, and none written under the copy's ``build/``
+   or the cache.
 
-Each main-path call (phases 5, 5b, 5c's hybrid call, 7, 8, 9 and 10; in
-phase 10 each rank's own) sets the launch counts to 0
+Each main-path call (phases 5, 5b, 5c's hybrid call, 7, 8, 9, 10 and 11; in
+phases 10 and 11 each process's own) sets the launch counts to 0
 just before it and reads them just after, and fails if a kernel of its
 path was not launched, if a path that merges did not launch
 ``tt_slot_merge_packed`` and ``tt_assemble``, or if any path launched
-an entry point that a redesign took out (``GONE_ENTRIES``); phase 1
+an entry point that was taken out (``GONE_ENTRIES``); phase 1
 fails if a built kernel library still exports one.
 
 Before the last line it prints the card line and one JSON ``kernels``
@@ -227,10 +238,11 @@ JAX_FUNCTIONS = {
     "grid_merge": ["merge.make_merge_fn", "engine.build_pipeline_fn row assembly"],
     "pair_count": ["parallel.train.make_pair_count_step.per_shard", "parallel.train._pair_hash"],
 }
-# entry points that redesigns took out: no path may launch them, and no
+# entry points taken out of the kernels: no path may launch them, and no
 # built kernel library may export them
 GONE_ENTRIES = ("tt_compact_rows", "tt_route", "tt_slot_merge", "tt_expand_tokens",
-                "tt_expand_tokens_rows", "tt_piece_counts", "tt_window_scan", "tt_orbit")
+                "tt_expand_tokens_rows", "tt_piece_counts", "tt_window_scan", "tt_orbit",
+                "tt_window_orbit_smem", "tt_window_orbit_blocks")
 # which kernels each path must launch
 PATH_KERNELS = {
     "v3": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
@@ -250,6 +262,10 @@ PATH_KERNELS = {
     "xproc_v2": ("scan_rows", "byte_scan", "compaction", "grid_merge"),
     "xproc_rows": ("byte_scan", "grid_merge"),
     "xproc_train": ("pair_count",),
+    # phase 11, the installed wheel in a process with no compiler: the v3
+    # call with strategy="device" and with "auto"
+    "wheel_device": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
+    "wheel_auto": ("scan_rows", "compaction", "vocab_hit", "slot_merge"),
 }
 
 CJK = "東京タワーは高い。パリは花の都、そして京都は古都です。春はあけぼの、やうやう白くなりゆく山際。"
@@ -1024,7 +1040,11 @@ def start_floor_build() -> subprocess.Popen:
     into ``tiktoken_tpu_torch/build/floors/``; ``floor_lib`` waits for it."""
     from tiktoken_tpu_torch.ops.kernels import NVCC_FLAGS
 
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    from tiktoken_tpu_torch import _build
+
+    nvcc = _build.find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the floor kernels cannot be built")
     os.makedirs(os.path.dirname(FLOOR_SO), exist_ok=True)
     return subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", FLOOR_SO, FLOOR_SRC],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -1468,6 +1488,11 @@ def main() -> int:
     xproc_phase(enc, eng, all_docs, tokens, offsets, run["fallback_docs"], words[0], hist,
                 launches)
     phase_s["10"] = time.perf_counter() - t0
+
+    # ---- 11: the installed wheel, in a process where no compiler is found ---------
+    t0 = time.perf_counter()
+    wheel_phase(all_docs, tokens, offsets, total_bytes, card, launches)
+    phase_s["11"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k}={v:.1f}" for k, v in phase_s.items()))
 
     rows = []
@@ -2031,6 +2056,144 @@ def xproc_rank(rank: int, n_ranks: int, backend: str, tmp: str, all_docs, word_d
             pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
+
+
+WHEEL_PATHS = {"device": "wheel_device", "auto": "wheel_auto"}
+# the wheel's build and its process are each killed, and the phase fails,
+# past this
+WHEEL_DEADLINE_S = 600
+
+
+def wheel_phase(all_docs, tokens, offsets, total_bytes: int, card: str, launches: dict) -> None:
+    """Phase 11: the installed wheel on the card. ``setup.py build_ext``
+    builds the wheel's compiled parts into a temporary directory (timed);
+    the core and the seven kernel libraries must be there under their
+    digest names. The port's two packages are copied beside that
+    ``prebuilt/`` (without their ``build/``), and a fresh process with
+    neither g++ nor nvcc on PATH, ``_build``'s nvcc search pointed away and
+    an empty cache directory runs phase 5's v3 call on ``cuda:0`` with
+    ``strategy="device"`` and with ``"auto"`` (``wheel_child``). Both must
+    equal phase 5's ids and launch every v3 kernel, the kernels and the core
+    must come from ``prebuilt/``, and no library may be written under the
+    copy's ``build/`` or the cache."""
+    import pickle
+
+    from tiktoken_tpu_torch import _build
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-wheel-") as tmp:
+        lib = os.path.join(tmp, "lib")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "setup.py", "-q", "build_ext", "--build-lib", lib,
+                               "--build-temp", os.path.join(tmp, "temp")], cwd=repo,
+                              capture_output=True, text=True, timeout=WHEEL_DEADLINE_S)
+        build_s = time.perf_counter() - t0
+        if proc.returncode:
+            raise RuntimeError(f"setup.py build_ext failed:\n{proc.stdout}{proc.stderr}")
+        prebuilt = os.path.join(lib, "tiktoken_tpu_torch", "prebuilt")
+        want = {_build.core_name(), *_build.kernel_names().values()}
+        got = set(os.listdir(prebuilt)) if os.path.isdir(prebuilt) else set()
+        if got != want:
+            raise RuntimeError(f"the wheel's prebuilt/ holds {sorted(got)}, want {sorted(want)}:"
+                               f"\n{proc.stdout}{proc.stderr}")
+        log(f"wheel: setup.py build_ext wrote the native core and the seven kernel libraries "
+            f"under their digest names in {build_s:.1f} s; {card}")
+        for pkg in ("tiktoken_tpu_torch", "tiktoken_tpu_torch_ext"):
+            shutil.copytree(os.path.join(repo, pkg), os.path.join(lib, pkg), dirs_exist_ok=True,
+                            ignore=shutil.ignore_patterns("build", "prebuilt", "__pycache__"))
+        docs_path, out_path = os.path.join(tmp, "docs.pkl"), os.path.join(tmp, "out.pkl")
+        with open(docs_path, "wb") as f:
+            pickle.dump(all_docs, f)
+        cache, empty_bin = os.path.join(tmp, "cache"), os.path.join(tmp, "bin")
+        os.makedirs(cache)
+        os.makedirs(empty_bin)
+        code = ("import importlib.util, sys\n"
+                f"sys.path.insert(0, {lib!r})\n"
+                f"spec = importlib.util.spec_from_file_location('chip_smoke', "
+                f"{os.path.abspath(__file__)!r})\n"
+                "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m)\n"
+                f"m.wheel_child({lib!r}, {docs_path!r}, {out_path!r})\n")
+        env = dict(os.environ, PATH=empty_bin, TIKTOKEN_TPU_CACHE_DIR=cache)
+        env.pop("PYTHONPATH", None)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tmp, env=env, capture_output=True,
+                              text=True, timeout=WHEEL_DEADLINE_S)
+        child_s = time.perf_counter() - t0
+        if proc.returncode:
+            raise RuntimeError(f"the wheel's process failed:\n{proc.stdout}{proc.stderr}")
+        with open(out_path, "rb") as f:
+            out = pickle.load(f)
+        written = [os.path.join(d, f) for where in (os.path.join(lib, "tiktoken_tpu_torch",
+                                                                 "build"), cache)
+                   for d, _, files in os.walk(where) for f in files if ".so" in f]
+        if written:
+            raise RuntimeError(f"the wheel's process wrote libraries: {written}")
+    log(f"wheel process: tiktoken_tpu_torch from {out['package']}, no compiler found "
+        f"({out['compilers']}); kernels and core loaded from prebuilt/: "
+        f"{sorted(os.path.basename(p) for p in out['libraries'])}")
+    for strategy, path in WHEEL_PATHS.items():
+        r = out[strategy]
+        launches[path] = {"kernels": r["kernels"], "entries": r["entries"]}
+        log(f"{path} launches: {r['kernels']}; by entry point {r['entries']}")
+        check_launches(path, launches[path])
+        if len(r["offsets"]) != len(offsets):
+            raise RuntimeError(f"{path}: {len(r['offsets']) - 1} documents, phase 5 had "
+                               f"{len(offsets) - 1}")
+        bad = same_ids((r["tokens"], r["offsets"]), tokens, offsets)
+        if bad:
+            raise RuntimeError(f"{path}: ids differ from phase 5's in documents {bad[:10]}")
+        log(f"{path}: strategy {strategy!r} ran {r['report']['strategy']!r} with the "
+            f"{r['report']['host_engine']} host engine, {total_bytes / r['secs'] / 1e6:.2f} MB/s "
+            f"({r['secs']:.2f} s); documents {r['report']['docs']}; {len(all_docs)} documents "
+            f"equal phase 5's ids")
+    log(f"phase 11: the wheel's build {build_s:.1f} s, its process {child_s:.1f} s (start, "
+        f"tables and DFAs from an empty cache, both calls), no library built; {card}")
+
+
+def wheel_child(lib: str, docs_path: str, out_path: str) -> None:
+    """Phase 11's process: the package copied under ``lib`` beside its
+    ``prebuilt/``, no compiler to be found, phase 5's documents through
+    ``encode_corpus_to_numpy`` on ``cuda:0`` with ``strategy="device"`` and
+    ``"auto"``, each with the launch counts set to 0 just before it and
+    read just after; the results go to ``out_path``."""
+    import pickle
+
+    import tiktoken_tpu_torch
+    from tiktoken_tpu_torch import _build, native
+    from tiktoken_tpu_torch.ops import kernels
+
+    _build.NVCC_DEFAULT = os.path.join(lib, "no-nvcc")  # the nvcc search pointed away
+    if not tiktoken_tpu_torch.__file__.startswith(lib + os.sep):
+        raise RuntimeError(f"tiktoken_tpu_torch imported from {tiktoken_tpu_torch.__file__}")
+    compilers = {"g++": shutil.which("g++"), native.CXX: shutil.which(native.CXX),
+                 "nvcc": _build.find_nvcc()}
+    if any(compilers.values()):
+        raise RuntimeError(f"a compiler is found: {compilers}")
+    with open(docs_path, "rb") as f:
+        docs = pickle.load(f)
+    enc = bench_encoding()
+    out = {"package": os.path.dirname(tiktoken_tpu_torch.__file__), "compilers": compilers}
+    for strategy in WHEEL_PATHS:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        toks, offs = enc.encode_corpus_to_numpy(docs, device="cuda:0", strategy=strategy)
+        torch.cuda.synchronize()
+        out[strategy] = {"secs": time.perf_counter() - t0, "tokens": toks, "offsets": offs,
+                         "kernels": dict(kernels.launches),
+                         "entries": dict(kernels.entry_launches),
+                         "report": {k: enc.corpus_report[k]
+                                    for k in ("strategy", "host_engine", "docs")}}
+    out["libraries"] = [lib_._name for lib_ in kernels.build().libs.values()]
+    if native._lib is not None:
+        out["libraries"].append(native._lib._name)
+    prebuilt = os.path.join(os.path.dirname(tiktoken_tpu_torch.__file__), "prebuilt")
+    outside = [p for p in out["libraries"] if os.path.dirname(p) != prebuilt]
+    if outside or kernels.build().ptxas or native._lib is None:
+        raise RuntimeError(f"libraries not from {prebuilt} ({outside}), kernels built "
+                           f"({sorted(kernels.build().ptxas)}), or no native core loaded")
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
 
 
 BENCH_PLUGIN = """

@@ -6,10 +6,12 @@ and ``list_encoding_names`` over the plugins of the
 ``tiktoken_tpu_torch_ext`` namespace package, ``encoding_for_model`` and
 ``encoding_name_for_model``.
 ``Encoding.encode_corpus`` runs the v3 (or v2) chunk program through
-hand-written CUDA kernels for Hopper (``tiktoken_tpu_torch/csrc``), built
-at first use (``device="cpu"`` runs their plain PyTorch versions instead),
-the native host core (``tiktoken_tpu_torch/native``, C++, built at first
-use), or both from one queue (``strategy=``).
+hand-written CUDA kernels for Hopper (``tiktoken_tpu_torch/csrc``;
+``device="cpu"`` runs their plain PyTorch versions instead), the native
+host core (``tiktoken_tpu_torch/native``, C++), or both from one queue
+(``strategy=``). Both compiled parts come prebuilt in a wheel or are built
+at first use (``_build``); with no core and no compiler, the host calls
+run the pure-Python encoder.
 ``tiktoken_tpu_torch.parallel`` spreads the encoder over several devices
 and carries the pair-count training step; ``tiktoken_tpu_torch.train`` is
 the host trainer. Compiled DFAs are cached on disk
@@ -29,3 +31,5 @@ from tiktoken_tpu_torch.registry import (
     get_encoding as get_encoding,
     list_encoding_names as list_encoding_names,
 )
+
+__version__ = "0.3.0"

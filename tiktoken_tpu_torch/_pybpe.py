@@ -18,10 +18,12 @@ A pure-Python implementation of the reference core's semantics
   src/py.rs:72-115).
 
 ``HostBPE.encode_ordinary`` runs the native host core (``native``, C++,
-built at first use) for every pattern inside the DFA compiler's dialect;
-the pure-Python split and merge here (``encode_ordinary_python``) are the
-spec the tests hold that core against. ``HostBPE.split`` splits text with
-the port's own char-level scanner DFA (``ops.regex_compiler.
+prebuilt or built at first use) for every pattern inside the DFA
+compiler's dialect; the pure-Python split and merge here
+(``encode_ordinary_python``) are the spec the tests hold that core
+against, and run the host calls where no core can be had (no prebuilt
+library and no compiler), as in the JAX package. ``HostBPE.split``
+splits text with the port's own char-level scanner DFA (``ops.regex_compiler.
 scan_codepoints`` over ``ops.artifacts.cached_char_dfa``, the DFA the
 engine's tables come from), so the patterns of the shipped encodings need
 neither the ``regex`` module nor the reference library. A pattern outside
@@ -41,7 +43,7 @@ import re
 import threading
 from typing import AbstractSet, Iterable
 
-from tiktoken_tpu_torch.native import NativeCore
+from tiktoken_tpu_torch import native
 from tiktoken_tpu_torch.ops.artifacts import cached_char_dfa
 from tiktoken_tpu_torch.ops.regex_compiler import CharScannerDFA, PatternError, scan_codepoints
 from tiktoken_tpu_torch.ops.unicode_tables import WHITE_SPACE_CPS
@@ -49,7 +51,8 @@ from tiktoken_tpu_torch.ops.unicode_tables import WHITE_SPACE_CPS
 RANK_MAX = 0xFFFFFFFF
 # the reference engine's \s: the Unicode White_Space property, which differs
 # from str.isspace() (U+001C..U+001F are isspace() but not White_Space)
-_WHITE_SPACE_SET = frozenset(map(chr, WHITE_SPACE_CPS))
+WHITE_SPACE = "".join(map(chr, WHITE_SPACE_CPS))
+_WHITE_SPACE_SET = frozenset(WHITE_SPACE)
 
 
 def rust_compat_pattern(pat_str: str) -> str:
@@ -212,6 +215,15 @@ def byte_pair_encode(piece: bytes, ranks: dict[bytes, int]) -> list[int]:
     return [ranks[piece[parts[i] : parts[i + 1]]] for i in range(len(parts) - 1)]
 
 
+def byte_pair_split(piece: bytes, ranks: dict[bytes, int]) -> list[bytes]:
+    """The byte segments greedy BPE splits ``piece`` (two bytes or more)
+    into."""
+    if len(piece) < 2:
+        raise ValueError("byte_pair_split takes a piece of two bytes or more")
+    parts = byte_pair_merge_boundaries(ranks, piece)
+    return [piece[parts[i] : parts[i + 1]] for i in range(len(parts) - 1)]
+
+
 def _decode_last_utf8(data: bytes) -> tuple[str | None, int]:
     """The last UTF-8 character of ``data``: (char, the bytes it takes), or
     (None, k) when the trailing bytes are not valid UTF-8 (k the length of
@@ -257,7 +269,7 @@ class HostBPE:
                               if self.special_tokens_encoder else None)
         self._dfa = None  # compiled at first use
         self._regex = None  # the regex module's pattern, where the DFA compile fails
-        self._native = None  # the native core, built at first use
+        self._native = None  # the native core at first use; False where none can be had
         self._native_lock = threading.Lock()
         self.decoder: dict[int, bytes] = {v: k for k, v in self.encoder.items()}
         if len(self.encoder) != len(self.decoder):
@@ -280,15 +292,26 @@ class HostBPE:
                 self._regex = _compile_regex(self.pattern, e)
         return self._dfa
 
-    def native_core(self) -> NativeCore | None:
-        """The native core of this vocabulary and pattern, built at the
+    def native_core(self) -> native.NativeCore | None:
+        """The native core of this vocabulary and pattern, made at the
         first call under a lock (the hybrid corpus workers race into it);
-        None for a pattern outside the DFA compiler's dialect."""
+        None for a pattern outside the DFA compiler's dialect, and where no
+        core can be had (``native.available()``, decided before any build:
+        no prebuilt or built library and no compiler). A compiler that is
+        found and fails raises."""
         if self._native is None:
             with self._native_lock:
                 if self._native is None and self.char_dfa() is not None:
-                    self._native = NativeCore(self.pattern, self.encoder)
-        return self._native
+                    self._native = (native.NativeCore(self.pattern, self.encoder)
+                                    if native.available() else False)
+        return self._native or None
+
+    def host_engine(self) -> str:
+        """Which engine the host calls run, without building it: "native"
+        (the native core) or "python" (the Python encoder)."""
+        if self._native is None and self.char_dfa() is not None:
+            return "native" if native.available() else "python"
+        return "native" if self._native else "python"
 
     def split(self, text: str) -> list[str]:
         """The pattern's pieces of ``text``: maximal munch over the char

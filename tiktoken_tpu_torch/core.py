@@ -39,6 +39,7 @@ from typing import AbstractSet, Collection, Literal, NoReturn, Sequence
 import numpy as np
 import torch
 
+from tiktoken_tpu_torch import native
 from tiktoken_tpu_torch._pybpe import HostBPE
 from tiktoken_tpu_torch._utf8 import fix_surrogates as _fix_surrogates
 from tiktoken_tpu_torch._utf8 import utf8_bytes
@@ -355,11 +356,13 @@ class Encoding:
 
         "auto" resolves to "host" when ``device`` is the CPU, as the JAX
         package's does on a CPU backend (the plain PyTorch versions add
-        nothing beside the native core); on a GPU to "hybrid" when the host
-        has more than one core, else "host" (the device worker's host work
-        would come out of the only core). A CUDA ``device`` without CUDA
-        raises. A pattern outside the device's dialect is then kept on the
-        host by the corpus call itself."""
+        nothing beside the native core); on a GPU to "device" where no
+        native core can be had (``native.available()``: the host would run
+        the Python encoder), as JAX's does on a host without one, else to
+        "hybrid" when the host has more than one core, else "host" (the
+        device worker's host work would come out of the only core). A CUDA
+        ``device`` without CUDA raises. A pattern outside the device's
+        dialect is then kept on the host by the corpus call itself."""
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown corpus strategy {strategy!r}; expected one of "
                              + ", ".join(repr(s) for s in STRATEGIES))
@@ -367,6 +370,8 @@ class Encoding:
             return strategy
         if resolve_device(device).type == "cpu":
             return "host"
+        if not native.available():
+            return "device"
         return "hybrid" if (os.cpu_count() or 1) > 1 else "host"
 
     def _route(self, strategy: str, device) -> str:
@@ -474,7 +479,8 @@ class Encoding:
         check_route(pipeline, scanner)
         resolved = self._route(strategy, device)
         texts = list(texts)
-        report = {"strategy": resolved, "docs": {"host": 0, "device": 0}}
+        report = {"strategy": resolved, "host_engine": self._core_bpe.host_engine(),
+                  "docs": {"host": 0, "device": 0}}
         t0 = time.perf_counter()
         core = self._core_bpe.native_core() if resolved == "host" else None
         if core is not None and as_numpy:
@@ -531,7 +537,8 @@ class Encoding:
         the JAX package's ``TIKTOKEN_TPU_SCANNER=seq``. The byte-level scan
         table is uploaded at the first call that needs it: the byte
         scanner, or a v1 re-run. ``corpus_report`` then holds the strategy
-        run, the documents each engine took and the device's host-clock
+        run, the host engine ("native" or "python", ``HostBPE.host_engine``),
+        the documents each engine took and the device's host-clock
         phases."""
         return self._encode_corpus(texts, device, row_capacity, chunk_rows, pipeline, scanner,
                                    strategy, False)

@@ -487,21 +487,6 @@ static cudaError_t wo_geometry(int hot, int KL, int K, int C, WoGeometry& g) {
   return cudaSuccess;
 }
 
-// shared memory bytes a tt_window_orbit block takes over C rows, or a
-// negative CUDA error
-extern "C" int tt_window_orbit_smem(int hot, int KL, int K, int C) {
-  WoGeometry g;
-  const cudaError_t e = wo_geometry(hot, KL, K, C, g);
-  return e != cudaSuccess ? -static_cast<int>(e) : static_cast<int>(g.smem);
-}
-
-// the blocks tt_window_orbit launches over C rows, or a negative CUDA error
-extern "C" int tt_window_orbit_blocks(int hot, int KL, int K, int C) {
-  WoGeometry g;
-  const cudaError_t e = wo_geometry(hot, KL, K, C, g);
-  return e != cudaSuccess ? -static_cast<int>(e) : g.blocks;
-}
-
 // rows [C, KL] u8, n_payload/n_total [C] i32 -> piece_start [C, K] u8,
 // row_bad [C] u8: the maximal-munch hops of positions 0..K-1 (lookahead to
 // K+W-1, EOF at and past n_total and past the row), W1 bytes first, the

@@ -1,17 +1,18 @@
 """The native host core: the v3 row cutter and the host BPE encoder in C++.
 
-``core.cpp`` is built at first use with the system C++ compiler (``CXX``,
-``g++ -O3 -std=c++17 -shared -fPIC -pthread``, plus ``-msse4.2`` on
-x86_64) into ``BUILD_DIR`` (``tiktoken_tpu_torch/build/``), as
-``ttpu_core-<digest>.so``, the digest taken over the source, the compiler
-and its flags. The compiler writes a temporary file that is renamed into
-place, so two processes racing the first build never load a half-written
-library. It is loaded with ctypes; each call releases the GIL.
+``core.cpp`` is compiled with the system C++ compiler (``CXX``, ``g++
+-O3 -std=c++17 -shared -fPIC -pthread``, plus ``-msse4.2`` on x86_64) into
+``ttpu_core-<digest>.so``, the digest taken over the source and its
+command line. ``_build`` finds it, prebuilt in a wheel or built already,
+or builds it at first use into ``BUILD_DIR`` (``tiktoken_tpu_torch/build/``)
+or, where that cannot be written, under the disk cache. It is loaded with
+ctypes; each call releases the GIL.
 
-Nothing here degrades quietly: a failed build raises with the compiler's
-output, and a failed call raises. No switch turns the core off. The
-pure-Python encoder (``_pybpe.HostBPE.encode_ordinary_python``) is the
-spec the tests hold this core against.
+Where no core can be had (``available()``: no library of the current
+source and no compiler found), the host calls run the pure-Python encoder
+(``_pybpe.HostBPE.encode_ordinary_python``), the spec the tests hold this
+core against, as the JAX package's do. A compiler that is found and fails
+raises with its output, and a failed call raises.
 
 - ``pack_cuts3``: the handshake-row cut positions of one document, the
   native form of ``ops/pipeline3._doc_cuts_np``, bit-exact with it on
@@ -26,20 +27,18 @@ spec the tests hold this core against.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import platform
-import subprocess
+import shutil
 import threading
-import uuid
 
 import numpy as np
 
+from tiktoken_tpu_torch import _build
+from tiktoken_tpu_torch._build import cxx_flags as cxx_flags
 from tiktoken_tpu_torch._utf8 import utf8_bytes
 
 CXX = "g++"
-SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "core.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
+BUILD_DIR = os.path.join(_build.PKG_DIR, "build")
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
@@ -56,43 +55,36 @@ _SIGNATURES = {
 RANK_MAX = 0xFFFFFFFF  # the core's error sentinel: never a token id
 
 
-def cxx_flags() -> list[str]:
-    flags = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
-    if platform.machine() in ("x86_64", "AMD64"):
-        flags.append("-msse4.2")
-    return flags
+def _cache_dir() -> str | None:
+    from tiktoken_tpu_torch.ops.artifacts import artifact_dir
+
+    return artifact_dir()
 
 
-def _build() -> str:
-    """Path of the built library, compiling it first when it is not
-    there; raises with the compiler's output when the build fails."""
-    with open(SRC, "rb") as f:
-        src = f.read()
-    cmd = [CXX, *cxx_flags()]
-    tag = hashlib.sha256(src + " ".join(cmd).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"ttpu_core-{tag}.so")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.{uuid.uuid4().hex}.tmp"
-        proc = subprocess.run([*cmd, SRC, "-o", tmp], capture_output=True, text=True,
-                              timeout=600)
-        if proc.returncode != 0:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            raise RuntimeError(f"building the native core failed ({' '.join(cmd)} {SRC}, exit "
-                               f"{proc.returncode}):\n{proc.stderr}{proc.stdout}")
-        os.replace(tmp, so)
-    return so
+def library_path() -> str | None:
+    """The core's library of the current source where one is prebuilt or
+    built already (``_build.find``'s order); None where none is."""
+    return _build.find(_build.core_name(), BUILD_DIR, _cache_dir())
+
+
+def available() -> bool:
+    """Whether the core can be had, decided without building: it is
+    loaded, its library is prebuilt or built already, or the compiler
+    ``CXX`` is found."""
+    return _lib is not None or shutil.which(CXX) is not None or library_path() is not None
 
 
 def load_library() -> ctypes.CDLL:
-    """The native core, built (once per source and flags) and loaded (once
-    per process)."""
+    """The native core, found or built (once per source and flags) and
+    loaded (once per process); raises with the compiler's output when a
+    build fails."""
     global _lib
     if _lib is None:
         with _lock:
             if _lib is None:
-                lib = ctypes.CDLL(_build())
+                so = library_path() or _build.build_core(
+                    CXX, _build.output_dir(BUILD_DIR, _cache_dir()))
+                lib = ctypes.CDLL(so)
                 for name, (restype, argtypes) in _SIGNATURES.items():
                     fn = getattr(lib, name)
                     fn.restype, fn.argtypes = restype, argtypes

@@ -26,10 +26,14 @@ bounds it and how its design answers that):
 - ``pair_count``: the hashed pair histogram of a token grid
   (``tt_pair_hist``) and its first argmax (``tt_hist_argmax``).
 
-Each source is compiled at first use by its own ``nvcc`` process (all
-started together) into a shared library with a plain C interface, under
-``tiktoken_tpu_torch/build/``, and loaded with ctypes. Every wrapper
-checks device, dtype, shape and contiguity, allocates its outputs with
+Each source is a shared library with a plain C interface, loaded with
+ctypes: prebuilt in a wheel, built already, or compiled at first use by
+its own ``nvcc`` process (all started together) into
+``tiktoken_tpu_torch/build/`` or, where that cannot be written, under the
+disk cache (``_build``'s lookup order). With no library to load and no
+``nvcc``, the first launch raises: nothing falls back to the plain
+versions on a GPU. Every wrapper checks device, dtype, shape and
+contiguity, allocates its outputs with
 ``torch.empty``, raises if the entry point returns a CUDA error, and adds
 one to its kernel's count in ``launches`` (and to its entry point's in
 ``entry_launches``). A wrapper launches on its tensors' device, on that
@@ -44,28 +48,24 @@ nothing else on the device.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
 import time
 from types import SimpleNamespace
 
 import torch
 
+from tiktoken_tpu_torch import _build
+from tiktoken_tpu_torch._build import CSRC as CSRC
+from tiktoken_tpu_torch._build import KERNELS as KERNELS
+from tiktoken_tpu_torch._build import NVCC_FLAGS as NVCC_FLAGS
 from tiktoken_tpu_torch.ops import compaction, merge, pair_count as pair_count_mod, pieces
 from tiktoken_tpu_torch.ops import slot_merge as slot_merge_mod
 from tiktoken_tpu_torch.ops import sweep_scan, window_scan as window_scan_mod
 from tiktoken_tpu_torch.ops.charclass import na_cap
 from tiktoken_tpu_torch.ops.sweep_scan import ScanTables
 
-KERNELS = ("scan_rows", "compaction", "vocab_hit", "slot_merge", "byte_scan", "grid_merge",
-           "pair_count")
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_DIR = os.path.join(_build.PKG_DIR, "build")
 
 # rows per block of the two scans (tt_scan_rows, tt_char_scan), 32-256: the
 # block has four threads per row to stage and classify, one to walk it;
@@ -138,7 +138,7 @@ _SIGNATURES = {
 
 
 class _Libraries:
-    """The built and loaded kernel libraries (built once per process)."""
+    """The kernel libraries, found or built and loaded once per process."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -150,40 +150,30 @@ class _Libraries:
         with self._lock:
             if self.libs is None:
                 t0 = time.perf_counter()
-                self.libs = self._build()
+                self.libs = self._find_or_build()
                 self.build_seconds = time.perf_counter() - t0
             return self.libs
 
-    def _build(self) -> dict[str, ctypes.CDLL]:
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        headers = b""  # every header of csrc/: a change to any of them rebuilds every kernel
-        for h in sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
-            with open(os.path.join(CSRC, h), "rb") as f:
-                headers += h.encode() + f.read()
-        targets, procs = {}, {}
-        for name in KERNELS:
-            src = os.path.join(CSRC, name + ".cu")
-            with open(src, "rb") as f:
-                digest = hashlib.sha256(f.read() + headers + " ".join(NVCC_FLAGS).encode())
-            so = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
-            targets[name] = so
-            if not os.path.exists(so):
-                tmp = f"{so}.{os.getpid()}.tmp"
-                procs[name] = (subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-o", tmp, src],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                ), tmp)
-        for name, (proc, tmp) in procs.items():
-            out, _ = proc.communicate()
-            self.ptxas[name] = out
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{out}")
-            os.replace(tmp, targets[name])
+    def _find_or_build(self) -> dict[str, ctypes.CDLL]:
+        from tiktoken_tpu_torch.ops.artifacts import artifact_dir
+
+        names = _build.kernel_names()
+        cache = artifact_dir()
+        paths = {k: _build.find(n, BUILD_DIR, cache) for k, n in names.items()}
+        missing = [k for k, path in paths.items() if path is None]
+        if missing:
+            nvcc = _build.find_nvcc()
+            if nvcc is None:
+                raise RuntimeError(
+                    f"no library of the CUDA kernels {', '.join(missing)} is prebuilt or built, "
+                    f"and nvcc is not found (not on PATH, not at {_build.NVCC_DEFAULT}): install "
+                    "the CUDA toolkit, or install the package from a wheel built where nvcc "
+                    "was found (pip install .[torch]), which carries the kernels prebuilt")
+            out = _build.output_dir(BUILD_DIR, cache)
+            self.ptxas.update(_build.build_kernels(nvcc, out, missing))
+            paths.update({k: os.path.join(out, names[k]) for k in missing})
         libs = {}
-        for name, so in targets.items():
+        for name, so in paths.items():
             lib = ctypes.CDLL(so)
             for fn, argtypes in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
@@ -196,9 +186,9 @@ _LIBS = _Libraries()
 
 
 def build() -> _Libraries:
-    """Build and load every kernel now (normally done at first launch);
-    returns the libraries, with the build time and nvcc's -Xptxas -v
-    report per kernel."""
+    """Find or build, and load, every kernel now (normally done at first
+    launch); returns the libraries, with the time taken and nvcc's
+    -Xptxas -v report for each kernel built."""
     _LIBS.load()
     return _LIBS
 

@@ -4,7 +4,8 @@ Host side (as in the JAX package's ops/pipeline3.py): documents are cut
 every ~K bytes at a character boundary, the corpus bytes ship once, and
 each chunk of C rows is described by offsets into them (``pack_corpus3``,
 ``chunk_inputs3``; the cuts come from the native host core's cutter,
-``native.pack_cuts3``, whose spec is the numpy ``_doc_cuts_np``).
+``native.pack_cuts3``, whose spec is the numpy ``_doc_cuts_np``, which
+cuts where no native core can be had).
 
 Device side (``run_chunk``): the same stages, caps, ``worst_case``
 variant and header layout as the JAX ``build_pipeline3_fn``, so every
@@ -98,10 +99,11 @@ def _is_utf8(doc: bytes) -> bool:
 
 
 def _doc_cuts(data: np.ndarray, K: int, utf8: bool) -> np.ndarray:
-    """Cut positions for one document: the native cutter on valid UTF-8,
-    where it is bit-exact with ``_doc_cuts_np``; on other bytes the numpy
-    cuts themselves (the native cutter cuts at the grid position where no
-    character starts in its window, and the numpy one does not)."""
+    """Cut positions for one document: the native cutter where ``utf8``
+    (the document is valid UTF-8 and the native core can be had), there
+    bit-exact with ``_doc_cuts_np``; elsewhere the numpy cuts themselves
+    (the native cutter cuts at the grid position where no character
+    starts in its window, and the numpy one does not)."""
     if utf8:
         return native.pack_cuts3(data, K, DIGIT_BACKUP)
     return _doc_cuts_np(data, K)
@@ -114,6 +116,7 @@ def pack_corpus3(docs: Sequence[bytes], K: int = K_DEFAULT,
     true says document i is known to be valid UTF-8 (it was encoded from a
     str); any other document is checked before it is cut."""
     KP, KL = row_geometry(K)
+    native_cuts = native.available()
     offs, pays, tots, ends, prevs, dix = [], [], [], [], [], []
     parts: list[np.ndarray] = []
     base = 0
@@ -126,7 +129,8 @@ def pack_corpus3(docs: Sequence[bytes], K: int = K_DEFAULT,
         if n <= K:
             bounds = np.asarray([0, n], dtype=np.int64)
         else:
-            cuts = _doc_cuts(data, K, (utf8 is not None and utf8[d_i]) or _is_utf8(doc))
+            cuts = _doc_cuts(data, K, native_cuts and (
+                (utf8 is not None and utf8[d_i]) or _is_utf8(doc)))
             bounds = np.concatenate([[0], cuts, [n]])
         starts = bounds[:-1]
         pay = np.diff(bounds)

@@ -61,11 +61,13 @@ class Throughput:
 
 def engine_report(encoding) -> dict:
     """The state of an ``Encoding``'s engines: the native host core's
-    (``"active"`` or ``"not built yet"``), and for each device engine built
+    (``"active"``, ``"not built yet"``, or ``"unavailable"`` where none can
+    be had and the host runs the Python encoder), and for each device engine built
     so far, by device, its ``stats`` and table sizes."""
     report: dict = {
         "name": encoding.name,
-        "host_native": "not built yet" if encoding._core_bpe._native is None else "active",
+        "host_native": ("active" if encoding._core_bpe._native else
+                        "not built yet" if encoding._core_bpe._native is None else "unavailable"),
         "engines": {},
     }
     for dev, eng in encoding._engines.items():
